@@ -1,0 +1,30 @@
+"""sphereflake_tpu_torch — the PyTorch/CUDA port of the sphereflake renderer.
+
+The JAX/XLA/Pallas package `sphereflake_tpu` beside this one is the
+reference; this package computes the same functions with plain torch
+ops and hand-written CUDA kernels for NVIDIA Hopper (sm_90a). It
+imports `torch` and `numpy` only — never `jax`, and nothing of the JAX
+package (it keeps its own copy of every JAX-free helper it needs).
+
+Ported so far: the full-frame forward path,
+`render_frame` = `render_gbuffer` (algorithm "binned": global expansion
+-> screen-tile binning -> the fused raygen+trace+shade kernel -> untile)
++ `postprocess` (SSAO -> blur x2 -> composite), and the CLI's
+full-frame branch (`python -m sphereflake_tpu_torch`).
+
+Every entry point takes an explicit `device` (default "cuda"); asking
+for "cuda" on a machine without one raises — nothing moves to the CPU
+on its own. Sub-packages mirror the reference (`ops/`, `models/`,
+`utils/`) so each counterpart is found under the same name.
+"""
+
+__version__ = "0.1.0"
+
+from sphereflake_tpu_torch.config import (  # noqa: F401
+    CameraParams,
+    FractalParams,
+    RenderConfig,
+    SSAOParams,
+    SceneParams,
+    default_scene,
+)

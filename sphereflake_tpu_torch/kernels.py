@@ -1,0 +1,108 @@
+"""Building and loading the port's hand-written CUDA kernels.
+
+Every `csrc/*.cu` file has a plain C interface. It is compiled with
+`nvcc` for sm_90a into its own shared library at first use and loaded
+with `ctypes` — no torch headers, so a build takes seconds. Libraries
+go into a build directory keyed by a hash of the source and the flags,
+so an edited source is rebuilt and an unchanged one is reused.
+
+Nothing here runs when the package is imported: machines without a
+CUDA toolkit import every module and run the kernels' plain torch
+versions on CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+
+_PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+
+# -fmad=false: no FMA contraction, so kernel arithmetic rounds like the
+# unfused eager-torch plain versions (see csrc/pairs_kernel.cu).
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+)
+
+# Kernel name -> source file under csrc/.
+SOURCES = {"pairs_kernel": "pairs_kernel.cu"}
+
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def build_dir() -> str:
+    """Where built libraries go: $SPHEREFLAKE_TORCH_BUILD_DIR, else
+    `build/sphereflake_tpu_torch` beside the package."""
+    return os.environ.get("SPHEREFLAKE_TORCH_BUILD_DIR") or os.path.join(
+        os.path.dirname(_PKG_DIR), "build", "sphereflake_tpu_torch"
+    )
+
+
+def find_nvcc() -> str:
+    for cand in (
+        shutil.which("nvcc"),
+        os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+        "/usr/local/cuda/bin/nvcc",
+    ):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the "
+        "CUDA kernels of sphereflake_tpu_torch are compiled at first use"
+    )
+
+
+def _lib_path(name: str, extra_flags=()) -> tuple[str, str]:
+    src = os.path.join(CSRC_DIR, SOURCES[name])
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(
+            f.read() + " ".join(NVCC_FLAGS + tuple(extra_flags)).encode()
+        ).hexdigest()[:16]
+    return src, os.path.join(build_dir(), f"lib{name}_{digest}.so")
+
+
+def build(names=None, extra_flags=(), verbose: bool = False) -> dict[str, str]:
+    """Compile the named kernels (default: all) that are not built yet
+    — one `nvcc` process per source, all started together — and return
+    {name: library path}. `extra_flags` (e.g. ("-Xptxas", "-v")) are
+    appended; with `verbose` the compiler's output is printed."""
+    names = list(SOURCES) if names is None else list(names)
+    os.makedirs(build_dir(), exist_ok=True)
+    paths, procs = {}, {}
+    for name in names:
+        src, lib = _lib_path(name, extra_flags)
+        paths[name] = lib
+        if not os.path.exists(lib):
+            tmp = f"{lib}.{os.getpid()}.tmp"
+            cmd = [find_nvcc(), *NVCC_FLAGS, *extra_flags, "-o", tmp, src]
+            procs[name] = (
+                subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True,
+                ),
+                tmp,
+            )
+    failures = []
+    for name, (proc, tmp) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed for {SOURCES[name]}:\n{log}")
+            continue
+        if verbose and log:
+            print(log)
+        os.replace(tmp, paths[name])  # atomic: no half-written library
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return paths
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel `name`, building it at first use."""
+    if name not in _libs:
+        _libs[name] = ctypes.CDLL(build([name])[name])
+    return _libs[name]

@@ -1,0 +1,736 @@
+"""Binned traversal: frame-global expansion + screen-tile binning (plain
+torch) feeding ONE fused CUDA kernel (raygen + ray tests + shading).
+
+Counterpart of the reference package's `ops/binned.py`. The tree is
+walked once per frame:
+
+1. **Global expansion** (`expand_global`): dense SoA frontier per level,
+   culled by the whole-frame frustum and the conservative LOD bound —
+   the C++ app's recursion (`Sphereflake.h:86-226`) with the screen for
+   a packet. Levels wider than `cfg.global_cap` are compacted to the
+   cap's closest live nodes (stable sort + gather), overflow counted.
+2. **Binning** (`bin_nodes`): every live node's bounding sphere (radius
+   2r) is projected to a conservative screen-space tile range by
+   interval arithmetic in the corner-ray basis; behind-camera nodes are
+   dropped by a corner-ray dot cull; (node, tile) pairs are laid out by
+   one packed-key sort into dense per-tile segments of a 7|8-row
+   payload (`node_rows`).
+3. **Fused kernel** (`trace_pairs_fused_soa`): one block per tile; the
+   kernel derives its ray directions from 16 camera scalars, walks the
+   tile's segment and shades the winner to (min_t, position, normal).
+   The kernel is hand-written CUDA (`csrc/pairs_kernel.cu`); its plain
+   torch version (`trace_pairs_fused_plain`) lives here beside it.
+
+All shapes are static functions of `RenderConfig` (`global_cap`,
+`pair_cap`, counted overflow): nothing between a frame's entry and its
+return reads a value back to the host.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from sphereflake_tpu_torch.config import FractalParams, RenderConfig
+
+_BIG = 3.0e38  # rounds to np.float32(3.0e38) in every f32 tensor op
+
+PAIR_CAP = 1 << 20  # upper bound on cfg.pair_cap
+_RAYS = 1024  # rays per tile (one kernel block)
+
+_POW7 = 9**7  # path-code hi/lo split: lo < 9^7 stays f32-exact
+# Depth bound of the two-lane f32 path code: a level-d code (with its
+# sentinel) lies in [9^d, 9^(d+1)), so at d = 13 hi = code // 9^7 stays
+# below 9^7 = 4,782,969 < 2^24 and both lanes are f32-exact. 13 is also
+# the physical f32 limit: level-13 spheres have radius 3^-13 ~ 6.3e-7,
+# approaching the f32 relative-precision floor of the center
+# coordinates themselves.
+DEEP_MAX_DEPTH = 13
+
+
+def _expand_cap(cfg: RenderConfig) -> int:
+    """Pre-expansion live cap: once a level's children would exceed
+    global_cap, the parents are compacted this hard first. global_cap
+    defaults to exactly 9x this, so compacted parents' children fill
+    the emitted level with no second (emit-time) compaction sort."""
+    return max(4096, cfg.global_cap // 9)
+
+
+def expand_global(
+    root: torch.Tensor,  # [3, 4]
+    templates: torch.Tensor,  # [9, 3, 4]
+    fractal: FractalParams,
+    cfg: RenderConfig,
+    frame_planes: torch.Tensor,  # [4, 3] inward unit planes of the whole frame
+):
+    """Levelwise SoA expansion of the whole LOD-passing tree.
+
+    Levels stay DENSE (masked, no data movement) while their 9^l width
+    fits `cfg.global_cap`; wider levels are compacted to the cap's
+    CLOSEST live nodes before emission, which bounds the binning
+    stage's arrays and makes the C++ app's unbounded LOD-terminated
+    recursion depth (`Sphereflake.h:146-153`) reachable.
+
+    Path codes ride two lanes (code = hi * 9^7 + lo) so depths past 7
+    stay exact in f32 kernel rows (`DEEP_MAX_DEPTH` = 13).
+
+    Returns (nodes dict with [N] component tensors over all levels
+    concatenated — cx, cy, cz, cc, r2, code (lo, int32),
+    code_hi (int32), live (bool), rad — and the compaction overflow
+    count, a 0-d int32 tensor).
+    """
+    assert cfg.max_depth <= DEEP_MAX_DEPTH, (
+        f"binned path supports max_depth <= {DEEP_MAX_DEPTH} "
+        "(two-lane path-code exactness)"
+    )
+    dev = root.device
+    depth = cfg.max_depth
+    cap = cfg.global_cap
+    lod_sq = torch.tensor(cfg.lod_factor**2, dtype=torch.float32, device=dev)
+    ratio = fractal.radius_ratio
+    radius0 = fractal.root_radius
+
+    rot = [[templates[:, a, b] for b in range(3)] for a in range(3)]  # [9]
+    disp = [templates[:, a, 3] for a in range(3)]
+
+    # Level 0: the root frame.
+    r = [root[a, b].reshape(1) for a in range(3) for b in range(3)]
+    t = [root[a, 3].reshape(1) for a in range(3)]
+    lo = torch.ones((1,), dtype=torch.int32, device=dev)
+    hi = torch.zeros((1,), dtype=torch.int32, device=dev)
+    live = torch.ones((1,), dtype=torch.bool, device=dev)
+    overflow = torch.zeros((), dtype=torch.int32, device=dev)
+
+    out = {k: [] for k in ("cx", "cy", "cz", "cc", "r2", "code",
+                            "code_hi", "live", "rad")}
+
+    def cull(t, live, radius):
+        cx, cy, cz = t
+        cc = cx * cx + cy * cy + cz * cz
+        # Whole-frame frustum + LOD cull.
+        lim = lod_sq * radius + 2.0 * radius
+        keep = live & (cc < lim * lim)
+        for p in range(4):
+            d_p = (
+                frame_planes[p, 0] * cx
+                + frame_planes[p, 1] * cy
+                + frame_planes[p, 2] * cz
+            )
+            keep = keep & (d_p >= -2.0 * radius)
+        return keep
+
+    def emit(t, lo, hi, live, radius):
+        cx, cy, cz = t
+        n = cx.shape[0]
+        ones = torch.ones((n,), dtype=torch.float32, device=dev)
+        out["cx"].append(cx)
+        out["cy"].append(cy)
+        out["cz"].append(cz)
+        out["cc"].append(cx * cx + cy * cy + cz * cz)
+        out["r2"].append(ones * (radius * radius))
+        out["code"].append(lo)
+        out["code_hi"].append(hi)
+        out["live"].append(live)
+        out["rad"].append(ones * (2.0 * radius))
+
+    def compact(r, t, lo, hi, live, cap=cap):
+        """Sort-and-gather compaction of live nodes to [cap] slots: one
+        stable sort by (dead, distance) orders the closest live nodes
+        first, so the over-cap drop policy is LOD-consistent — the
+        FARTHEST nodes go, never the near subtree an approach dive
+        exists to reveal."""
+        total_all = live.sum(dtype=torch.int32)
+        cc = t[0] * t[0] + t[1] * t[1] + t[2] * t[2]
+        key = torch.where(live, cc, torch.full_like(cc, _BIG))
+        idx = torch.sort(key, stable=True).indices[:cap]
+        total = torch.clamp_max(total_all, cap)
+        new_live = torch.arange(cap, dtype=torch.int32, device=dev) < total
+        return (
+            [x[idx] for x in r],
+            [x[idx] for x in t],
+            lo[idx],
+            hi[idx],
+            new_live,
+            torch.clamp_min(total_all - cap, 0),
+        )
+
+    radius = radius0
+    live = cull(t, live, radius)
+    emit(t, lo, hi, live, radius)
+    ecap = _expand_cap(cfg)
+    j9 = torch.arange(9, dtype=torch.int32, device=dev)[:, None]
+    for _level in range(depth):
+        if 9 * live.shape[0] > cap and live.shape[0] > ecap:
+            # Children would exceed the cap. Only parents that can
+            # produce a LOD-passing child need to survive: a child's
+            # emit cull needs |c_child| < lod^2*r_c + 2*r_c, and
+            # |c_child| >= |c_parent| - (1+ratio)*r_p, so the gate
+            # below is exactly conservative.
+            r_c = radius * ratio
+            lim = lod_sq * r_c + 2.0 * r_c + (1.0 + ratio) * radius
+            cc_cur = t[0] * t[0] + t[1] * t[1] + t[2] * t[2]
+            gate = live & (cc_cur < lim * lim)
+            r, t, lo, hi, live, ovf = compact(r, t, lo, hi, gate, ecap)
+            overflow = overflow + ovf
+        scale = (1.0 + ratio) * radius
+        # Children: [9, N] via broadcasting template constants.
+        new_r = [
+            sum(r[3 * a + k][None, :] * rot[k][b][:, None] for k in range(3))
+            for a in range(3)
+            for b in range(3)
+        ]
+        new_t = [
+            sum(r[3 * a + k][None, :] * (scale * disp[k])[:, None]
+                for k in range(3))
+            + t[a][None, :]
+            for a in range(3)
+        ]
+        lo9 = lo[None, :] * 9 + j9
+        carry = torch.div(lo9, _POW7, rounding_mode="floor")
+        lo = lo9 - carry * _POW7
+        hi = hi[None, :] * 9 + carry
+        n9 = lo.shape[0] * lo.shape[1]
+        r = [x.reshape(n9) for x in new_r]
+        t = [x.reshape(n9) for x in new_t]
+        lo = lo.reshape(n9)
+        hi = hi.reshape(n9)
+        live = live[None, :].expand(9, live.shape[0]).reshape(n9)
+        radius = radius * ratio
+        live = cull(t, live, radius)
+        # Compact wide levels before emission too, so the binning
+        # stage's arrays stay <= global_cap per level.
+        if n9 > cap:
+            r, t, lo, hi, live, ovf = compact(r, t, lo, hi, live)
+            overflow = overflow + ovf
+        emit(t, lo, hi, live, radius)
+
+    nodes = {k: torch.cat(v) for k, v in out.items()}
+    return nodes, overflow
+
+
+def corner_basis(cam, width: int, height: int):
+    """Rows of M^-1 for the corner-ray basis: a camera-relative point c
+    projects to screen uv' = (s0/s2, s1/s2) with s = M^-1 c, where
+    M = [TR-TL | BL-TL | TL-origin] (`Sphereflake.cpp:162-167`).
+
+    The inverse is the closed-form adjugate over the determinant (cross
+    products of M's columns): no solver library, no synchronisation.
+    It rounds differently from an LU inverse by a few ulps, which the
+    conservative tile ranges built on it absorb."""
+    from sphereflake_tpu_torch.camera import corner_rays
+
+    origin, tl, tr, bl = corner_rays(cam, width / height)
+    a, b, c = tr - tl, bl - tl, tl - origin  # columns of M
+    bc = torch.linalg.cross(b, c)
+    ca = torch.linalg.cross(c, a)
+    ab = torch.linalg.cross(a, b)
+    det = torch.sum(a * bc)
+    return torch.stack([bc, ca, ab]) / det  # [3, 3], rows of M^-1
+
+
+def bin_geometry(nodes, minv, cfg: RenderConfig, frame=None, corners=None):
+    """Per-node screen-space geometry of the pair fill (all elementwise
+    — no scatters/sorts): conservative tile ranges from interval
+    arithmetic in the corner-ray basis, the behind-camera cull, and
+    the pair-slot layout (counts / first / n_pairs)."""
+    pair_cap = cfg.pair_cap
+    tw, th = cfg.tile_w, cfg.tile_h
+    tx_n, ty_n = cfg.tiles_x, cfg.tiles_y
+    frame_w, frame_h, x_off, y_off = (
+        frame if frame is not None else (cfg.width, cfg.height, 0.0, 0.0)
+    )
+    # NDC scale: uv' of 1.0 = frame_w pixels (original dims); the block
+    # offset shifts pixel coords into block-local tile units.
+    sx = frame_w / tw
+    sy = frame_h / th
+    ox = x_off / tw
+    oy = y_off / th
+
+    c = [nodes["cx"], nodes["cy"], nodes["cz"]]
+    # Binning radius = 2r (the C++ app's bounding radius), NOT the self
+    # radius r, even though only self-hits are tested: the f32 kernel's
+    # disc = tca^2 + (r^2 - |c|^2) suffers catastrophic cancellation,
+    # so rays slightly OUTSIDE the exact r-sphere can still register
+    # tangent "hits". The extra r of margin keeps those grazes
+    # deterministic across band layouts.
+    rad = nodes["rad"]
+    s = [
+        minv[k, 0] * c[0] + minv[k, 1] * c[1] + minv[k, 2] * c[2]
+        for k in range(3)
+    ]
+    mnorm = [torch.sqrt(torch.sum(minv[k] * minv[k])) for k in range(3)]
+    ds = [mnorm[k] * rad for k in range(3)]
+
+    # Interval arithmetic on u' = s0/s2, v' = s1/s2 over the sphere.
+    s2_lo = s[2] - ds[2]
+    s2_hi = s[2] + ds[2]
+    front = s2_lo > 0.0  # safely in front of the camera plane
+
+    def ratio_bounds(num, dnum):
+        n_lo, n_hi = num - dnum, num + dnum
+        cands = [
+            n_lo / s2_lo, n_lo / s2_hi, n_hi / s2_lo, n_hi / s2_hi
+        ]
+        return (
+            torch.minimum(torch.minimum(cands[0], cands[1]),
+                          torch.minimum(cands[2], cands[3])),
+            torch.maximum(torch.maximum(cands[0], cands[1]),
+                          torch.maximum(cands[2], cands[3])),
+        )
+
+    u_lo, u_hi = ratio_bounds(s[0], ds[0])
+    v_lo, v_hi = ratio_bounds(s[1], ds[1])
+
+    def tile_index(x, n):
+        # Clamp in float BEFORE the int cast: the ratios are inf/nan for
+        # nodes that are not `front` (masked below), and a float->int
+        # cast of those is undefined.
+        return torch.clamp(torch.floor(x), 0, n - 1).to(torch.int32)
+
+    # Tile ranges (conservative; behind-camera nodes take everything).
+    tx0 = tile_index(u_lo * sx - ox, tx_n)
+    tx1 = tile_index(u_hi * sx - ox, tx_n)
+    ty0 = tile_index(v_lo * sy - oy, ty_n)
+    ty1 = tile_index(v_hi * sy - oy, ty_n)
+    zero = torch.zeros_like(tx0)
+    tx0 = torch.where(front, tx0, zero)
+    ty0 = torch.where(front, ty0, zero)
+    tx1 = torch.where(front, tx1, torch.full_like(tx1, tx_n - 1))
+    ty1 = torch.where(front, ty1, torch.full_like(ty1, ty_n - 1))
+    bw = tx1 - tx0 + 1
+    keep = nodes["live"]
+    if corners is not None:
+        cd = torch.full_like(c[0], -1.0)
+        for i in range(4):
+            cd = torch.maximum(
+                cd,
+                corners[i, 0] * c[0] + corners[i, 1] * c[1]
+                + corners[i, 2] * c[2],
+            )
+        keep = keep & (cd >= 0.0)
+    counts = torch.where(keep, bw * (ty1 - ty0 + 1), zero)
+
+    offsets = torch.cumsum(counts, dim=0, dtype=torch.int32)  # inclusive
+    n_pairs = offsets[-1]
+    pair_overflow = torch.clamp_min(n_pairs - pair_cap, 0)
+
+    first = offsets - counts
+    n_nodes = counts.shape[0]
+    return dict(
+        tx0=tx0, ty0=ty0, bw=bw, counts=counts, first=first,
+        n_pairs=n_pairs, n_nodes=n_nodes, pair_overflow=pair_overflow,
+    )
+
+
+def _decode_tiles_window(geo, cfg: RenderConfig, lo: int, width: int):
+    """Decode (tile, node) for pair slots [lo, lo + width) from the
+    per-node geometry dict — the heart of the pair fill. `bin_nodes`
+    calls it with the full window (lo=0, width=pair_cap).
+
+    Node i owns the gapless slot range [first[i], first[i] + counts[i]),
+    so the owner of slot p is found by one binary search of the
+    inclusive offsets (the reference builds the same table with an
+    out-of-bounds-dropping scatter and a running max; the result, slot
+    for slot, is identical):
+
+    - p < n_pairs: the node whose range holds p; the tile is that
+      node's range origin advanced by the slot's rank within it;
+    - p >= n_pairs: tile = n_tiles (the sentinel that sorts to the
+      end), node = the last node that has a slot in the table (0 when
+      there is none).
+    """
+    pair_cap = cfg.pair_cap
+    tx_n, ty_n = cfg.tiles_x, cfg.tiles_y
+    n_tiles = tx_n * ty_n
+    n_nodes = geo["n_nodes"]
+    first, counts = geo["first"], geo["counts"]
+    tx0, ty0, bw = geo["tx0"], geo["ty0"], geo["bw"]
+    n_pairs = geo["n_pairs"]
+    dev = first.device
+    assert pair_cap <= PAIR_CAP
+
+    offsets = first + counts  # inclusive cumsum, non-decreasing
+    iota_n = torch.arange(n_nodes, dtype=torch.int32, device=dev)
+    iota_p = lo + torch.arange(width, dtype=torch.int32, device=dev)
+    in_table = (counts > 0) & (first < pair_cap)
+    last_node = torch.max(torch.where(in_table, iota_n, torch.zeros_like(iota_n)))
+    pair_valid = iota_p < n_pairs  # offsets are gapless
+    owner = torch.searchsorted(offsets, iota_p, right=True, out_int32=True)
+    pair_node = torch.where(pair_valid, owner, last_node)
+
+    node_l = pair_node.long()
+    pair_rank = iota_p - first[node_l]
+    nb_w = bw[node_l]
+    p_tx = tx0[node_l] + pair_rank % nb_w
+    p_ty = ty0[node_l] + torch.div(pair_rank, nb_w, rounding_mode="floor")
+    tile = torch.where(
+        pair_valid,
+        torch.clamp_max(p_ty * tx_n + p_tx, n_tiles),
+        torch.full_like(p_tx, n_tiles),
+    )
+    return tile, pair_node
+
+
+def _sort_pairs(tile, pair_node, n_nodes: int, n_tiles: int):
+    """One sort into tile-segment order. Packed single key (tile <<
+    node_bits | node) when both fit 31 bits; else a stable sort by tile
+    carrying the node along."""
+    node_bits = max(1, (n_nodes - 1).bit_length())
+    tile_bits = (n_tiles + 1).bit_length()
+    if node_bits + tile_bits <= 31:
+        packed = (tile << node_bits) | pair_node
+        packed = torch.sort(packed).values
+        tile_sorted = packed >> node_bits
+        node_sorted = packed & ((1 << node_bits) - 1)
+    else:
+        tile_sorted, order = torch.sort(tile, stable=True)
+        node_sorted = pair_node[order]
+    return tile_sorted, node_sorted
+
+
+def node_rows(nodes, cfg: RenderConfig):
+    """The fat-rows node attribute matrix [7|8, N] the pair gather
+    pulls from: every scalar the kernel's node loop consumes rides the
+    pair table — (cx, cy, cz, rc = r2 - cc, code[, code_hi],
+    lodr = lod^2*r, rc4 = 4r^2 - cc), 7 rows (8 from depth 7 on: level-7
+    codes already spill their sentinel into the hi lane)."""
+    deep_rows = cfg.max_depth >= 7
+    lod_sq_f = float(np.float32(cfg.lod_factor) ** 2)
+    cc_n = nodes["cc"]
+    r2_n = nodes["r2"]
+    row_list = [
+        nodes["cx"], nodes["cy"], nodes["cz"],
+        r2_n - cc_n,
+        nodes["code"].to(torch.float32),
+    ]
+    if deep_rows:
+        row_list.append(nodes["code_hi"].to(torch.float32))
+    row_list.append(lod_sq_f * torch.sqrt(torch.clamp_min(r2_n, 0.0)))
+    row_list.append(4.0 * r2_n - cc_n)
+    return torch.stack(row_list)
+
+
+def bin_nodes(nodes, minv, cfg: RenderConfig, frame=None, corners=None):
+    """Conservative (node, tile) pairing + one sort into tile segments.
+
+    `frame` = (frame_w, frame_h, x_off, y_off) describes the full image
+    this cfg's block is cut from (a band is a y-offset block of the
+    frame whose corner-ray basis `minv` was built from). Defaults to
+    the identity (cfg.width, cfg.height, 0, 0).
+
+    `corners` = [4, 3] frame corner-ray directions (unnormalized is
+    fine). When given, nodes BEHIND every corner ray are dropped: the
+    kernel rejects tca = dot(c, dir) < 0, and tca is linear in dir over
+    the frustum, so max_i dot(c, corner_i) < 0 proves no frame ray can
+    hit the node. Without this cull, behind-camera nodes take the
+    ENTIRE tile grid (the conservative straddle fallback).
+
+    Returns (pairs [7|8, cfg.pair_cap], starts [T], lens [T], (n_pairs,
+    pair_overflow))."""
+    pair_cap = cfg.pair_cap
+    n_tiles = cfg.tiles_x * cfg.tiles_y
+    geo = bin_geometry(nodes, minv, cfg, frame=frame, corners=corners)
+    n_pairs, pair_overflow = geo["n_pairs"], geo["pair_overflow"]
+    n_nodes = geo["n_nodes"]
+    tile, pair_node = _decode_tiles_window(geo, cfg, 0, pair_cap)
+    tile_sorted, node_sorted = _sort_pairs(tile, pair_node, n_nodes, n_tiles)
+    rows = node_rows(nodes, cfg)  # [7|8, N]
+    pairs = rows[:, node_sorted.long()]  # [R, pair_cap]
+    # Dead pairs (tile == n_tiles) sit at the end; starts/lens ignore
+    # them, but stamp rc = -BIG defensively (disc = tca^2 + rc can then
+    # never reach 0) so no ray test can ever pass on them.
+    dead = tile_sorted >= n_tiles
+    pairs[3] = torch.where(dead, torch.full_like(pairs[3], -_BIG), pairs[3])
+
+    bounds = torch.searchsorted(
+        tile_sorted,
+        torch.arange(n_tiles + 1, dtype=torch.int32, device=tile_sorted.device),
+        out_int32=True,
+    )
+    starts, lens = bounds[:-1], bounds[1:] - bounds[:-1]
+    return pairs, starts.contiguous(), lens.contiguous(), (
+        n_pairs, pair_overflow
+    )
+
+
+# --------------------------------------------------------------------
+# The fused kernel: plain version, CUDA launch, wrapper.
+# --------------------------------------------------------------------
+
+
+def trace_pairs_fused_plain(cam, pairs, starts, lens, cfg: RenderConfig):
+    """Plain torch version of the fused kernel — the same function as
+    `csrc/pairs_kernel.cu` in eager ops, vectorised over [T, 1024] with
+    a loop over the segment position k, the same association order and
+    the same tie rule (winner = smallest (ts, k mod 8, k)). The CPU
+    tests use it, and the kernel is held against it on the card; it
+    reads max(lens) back to the host, so it is not a frame-path
+    function. Returns (out [T, 8|9, 8, 128], metrics [T, 1, 4])."""
+    T = cfg.tiles_y * cfg.tiles_x
+    deep = cfg.max_depth >= 7
+    dev = pairs.device
+    tile_w, tile_h, tiles_x = cfg.tile_w, cfg.tile_h, cfg.tiles_x
+    assert tile_w & (tile_w - 1) == 0 and tile_w * tile_h == _RAYS
+    n_cols = pairs.shape[1]
+
+    flat = torch.arange(_RAYS, dtype=torch.int32, device=dev)
+    col = flat & (tile_w - 1)
+    row = flat >> (tile_w.bit_length() - 1)
+    tid = torch.arange(T, dtype=torch.int32, device=dev)
+    txs = tid % tiles_x
+    tys = torch.div(tid, tiles_x, rounding_mode="floor")
+    fpx = (txs[:, None] * tile_w + col[None, :]).to(torch.float32)
+    fpy = (tys[:, None] * tile_h + row[None, :]).to(torch.float32)
+    u = (fpx + cam[12]) / cam[14]
+    v = (fpy + cam[13]) / cam[15]
+    dx = (cam[0] + (cam[3] * u + cam[6] * v)) - cam[9]
+    dy = (cam[1] + (cam[4] * u + cam[7] * v)) - cam[10]
+    dz = (cam[2] + (cam[5] * u + cam[8] * v)) - cam[11]
+    dnorm = torch.sqrt(dx * dx + dy * dy + dz * dz)
+    dx = dx / dnorm
+    dy = dy / dnorm
+    dz = dz / dnorm
+
+    zero = torch.zeros((T, _RAYS), dtype=torch.float32, device=dev)
+    bt = torch.full_like(zero, _BIG)
+    blo, bhi = zero, zero
+    bcx, bcy, bcz = zero, zero, zero
+    bk7 = torch.zeros((T, _RAYS), dtype=torch.int32, device=dev)
+    r_lodr, r_rc4 = (6, 7) if deep else (5, 6)
+    starts_l = starts.long()
+
+    k_max = int(lens.max()) if T else 0
+    for k in range(k_max):
+        in_seg = (k < lens)[:, None]  # [T, 1]
+        cols = pairs[:, torch.clamp_max(starts_l + k, n_cols - 1)]  # [R, T]
+        cx, cy, cz = cols[0][:, None], cols[1][:, None], cols[2][:, None]
+        rc = cols[3][:, None]
+        lodr = cols[r_lodr][:, None]
+        rc4 = cols[r_rc4][:, None]
+        tca = dx * cx + dy * cy + dz * cz
+        t2 = tca * tca
+        disc = t2 + rc
+        c1p = torch.clamp_min(tca - lodr, 0.0)
+        ok = in_seg & (tca >= 0.0) & (c1p * c1p < t2 + rc4) & (disc >= 0.0)
+        ts = tca - torch.sqrt(torch.clamp_min(disc, 0.0))
+        better = ok & ((ts < bt) | ((ts == bt) & ((k & 7) < bk7)))
+        bt = torch.where(better, ts, bt)
+        bk7 = torch.where(better, torch.full_like(bk7, k & 7), bk7)
+        blo = torch.where(better, cols[4][:, None], blo)
+        if deep:
+            bhi = torch.where(better, cols[5][:, None], bhi)
+        bcx = torch.where(better, cx, bcx)
+        bcy = torch.where(better, cy, bcy)
+        bcz = torch.where(better, cz, bcz)
+
+    hit = blo >= 1.0
+    if deep:
+        hit = hit | (bhi >= 1.0)
+    t0 = torch.where(hit, bt, zero)
+    px, py, pz = dx * t0, dy * t0, dz * t0
+    wx, wy, wz = px - bcx, py - bcy, pz - bcz
+    nn = torch.sqrt(torch.clamp_min(wx * wx + wy * wy + wz * wz, 0.0))
+    nn = torch.where(nn > 0.0, nn, torch.ones_like(nn))
+    hf = hit.to(torch.float32)
+    rows = [torch.where(hit, bt, torch.full_like(bt, _BIG)), blo]
+    if deep:
+        rows.append(bhi)
+    rows += [px, py, pz, hf * (wx / nn), hf * (wy / nn), hf * (wz / nn)]
+    out = torch.stack(rows, dim=1).reshape(T, len(rows), 8, 128)
+    metrics = torch.zeros((T, 1, 4), dtype=torch.int32, device=dev)
+    metrics[:, 0, 0] = lens
+    return out, metrics
+
+
+def _check_kernel_inputs(cam, pairs, starts, lens, cfg: RenderConfig):
+    """Raise on anything the kernel does not take."""
+    T = cfg.tiles_y * cfg.tiles_x
+    n_rows = 8 if cfg.max_depth >= 7 else 7
+    tile_w = cfg.tile_w
+    if tile_w & (tile_w - 1) or tile_w * cfg.tile_h != _RAYS:
+        raise ValueError(
+            f"tile {cfg.tile_h}x{tile_w}: tile_w must be a power of two "
+            f"and tile_h * tile_w == {_RAYS}"
+        )
+    specs = (
+        ("cam", cam, torch.float32, (16,)),
+        ("pairs", pairs, torch.float32, (n_rows, None)),
+        ("starts", starts, torch.int32, (T,)),
+        ("lens", lens, torch.int32, (T,)),
+    )
+    for name, x, _, _ in specs:
+        if not isinstance(x, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor, got {type(x)}")
+    for name, x, dtype, shape in specs:
+        if x.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
+        if x.device != pairs.device:
+            raise ValueError(
+                f"{name} lies on {x.device}, pairs on {pairs.device}"
+            )
+        if x.dim() != len(shape) or any(
+            s is not None and s != d for s, d in zip(shape, x.shape)
+        ):
+            raise ValueError(
+                f"{name} must have shape {shape}, got {tuple(x.shape)}"
+            )
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _launch_pairs_kernel(cam, pairs, starts, lens, cfg: RenderConfig):
+    """Enqueue `csrc/pairs_kernel.cu` on the current stream."""
+    from sphereflake_tpu_torch import kernels
+
+    lib = kernels.load("pairs_kernel")
+    fn = lib.sf_trace_pairs_fused
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    T = cfg.tiles_y * cfg.tiles_x
+    deep = cfg.max_depth >= 7
+    n_out = 9 if deep else 8
+    dev = pairs.device
+    out = torch.empty((T, n_out, 8, 128), dtype=torch.float32, device=dev)
+    metrics = torch.empty((T, 1, 4), dtype=torch.int32, device=dev)
+    # The launch is asynchronous and ctypes keeps no reference to the
+    # tensors: that is safe because the launch goes to the current
+    # stream, and the caching allocator reuses a freed block only in
+    # stream order.
+    with torch.cuda.device(dev):
+        err = fn(
+            cam.data_ptr(), pairs.data_ptr(), starts.data_ptr(),
+            lens.data_ptr(), out.data_ptr(), metrics.data_ptr(),
+            T, pairs.shape[1], cfg.tile_w.bit_length() - 1, cfg.tile_h,
+            cfg.tiles_x, int(deep),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"pairs_kernel launch failed: cudaGetLastError() = {err}"
+        )
+    trace_pairs_fused_soa.launches += 1
+    return out, metrics
+
+
+def trace_pairs_fused_soa(
+    cam: torch.Tensor,  # [16] f32: tl(3), ex(3), ey(3), origin(3), x_off,
+    # y_off, frame_w, frame_h
+    pairs: torch.Tensor,  # [7|8, cfg.pair_cap] f32
+    starts: torch.Tensor,  # [T] int32
+    lens: torch.Tensor,  # [T] int32
+    cfg: RenderConfig,
+):
+    """The fused production kernel: raygen + ray tests + G-buffer
+    shading in ONE launch (no ray-direction array ever exists in device
+    memory). Returns (out [T, C, 8, 128], metrics [T, 1, 4]) with rows
+    (min_t, code_lo[, code_hi], px, py, pz, nx, ny, nz): C = 9 when
+    cfg.max_depth >= 7, else 8. min_t is BIG at sky; pos/nrm are zeros
+    at sky. metrics column 0 is the tile's segment length.
+
+    CUDA tensors launch the hand-written kernel (or raise); CPU tensors
+    run the plain version. Launches on the current stream, never
+    synchronises. `trace_pairs_fused_soa.launches` counts kernel
+    launches."""
+    _check_kernel_inputs(cam, pairs, starts, lens, cfg)
+    if pairs.device.type == "cuda":
+        return _launch_pairs_kernel(cam, pairs, starts, lens, cfg)
+    return trace_pairs_fused_plain(cam, pairs, starts, lens, cfg)
+
+
+trace_pairs_fused_soa.launches = 0
+
+
+def binned_pairs(scene, cfg: RenderConfig, root, templates, frame=None):
+    """Global expansion + binning: (pairs, starts, lens, (n_pairs,
+    overflow)) — overflow counts pair-table AND deep-level compaction
+    drops.
+
+    `frame` = (frame_w, frame_h, x_off, y_off) when cfg describes one
+    block (band) of a larger frame (see `bin_nodes`)."""
+    from sphereflake_tpu_torch.camera import corner_rays, tile_frustum_planes
+
+    frame_w, frame_h, x_off, y_off = (
+        frame if frame is not None else (cfg.width, cfg.height, 0.0, 0.0)
+    )
+    block_planes = tile_frustum_planes(
+        scene.camera, frame_w, frame_h,
+        cfg.padded_height, cfg.padded_width,
+        x_off=x_off, y_off=y_off,
+        block_h=cfg.padded_height, block_w=cfg.padded_width,
+    )[0]  # one "tile" = this whole block
+    nodes, exp_overflow = expand_global(
+        root, templates, scene.fractal, cfg, block_planes
+    )
+    minv = corner_basis(scene.camera, frame_w, frame_h)
+    # This block's corner-ray directions (padded extent included: the
+    # padded rows/cols extrapolate the corner interpolation, so the
+    # hull must cover them for the behind-camera cull to be exact).
+    origin, tl, tr, bl = corner_rays(scene.camera, frame_w / frame_h)
+    ex, ey = tr - tl, bl - tl
+    f32 = lambda x: origin.new_tensor(float(x))
+    u0 = f32(x_off) / f32(frame_w)
+    u1 = (f32(x_off) + cfg.padded_width) / f32(frame_w)
+    v0 = f32(y_off) / f32(frame_h)
+    v1 = (f32(y_off) + cfg.padded_height) / f32(frame_h)
+    base = tl - origin
+    corners = torch.stack(
+        [base + u * ex + v * ey for u in (u0, u1) for v in (v0, v1)]
+    )
+    pairs, starts, lens, (n_pairs, pair_ovf) = bin_nodes(
+        nodes, minv, cfg, frame=frame, corners=corners
+    )
+    return pairs, starts, lens, (n_pairs, pair_ovf + exp_overflow)
+
+
+def camera_vector(scene, cfg: RenderConfig, frame=None):
+    """The 16-scalar camera pack consumed by the fused kernel's raygen:
+    [tl(3), ex(3), ey(3), origin(3), x_off, y_off, frame_w, frame_h]
+    (`Sphereflake.cpp:162-167` corner parameterization)."""
+    from sphereflake_tpu_torch.camera import corner_rays
+
+    frame_w, frame_h, x_off, y_off = (
+        frame if frame is not None else (cfg.width, cfg.height, 0.0, 0.0)
+    )
+    origin, tl, tr, bl = corner_rays(scene.camera, frame_w / frame_h)
+    ex, ey = tr - tl, bl - tl
+    tail = origin.new_tensor(
+        [float(x_off), float(y_off), float(frame_w), float(frame_h)]
+    )
+    return torch.cat([tl, ex, ey, origin, tail])
+
+
+def binned_gbuffer(cfg: RenderConfig, frame_w, frame_h, scene, offs):
+    """The production forward pass of one block: expansion + binning in
+    plain torch, then ONE fused kernel launch computes raygen + binned
+    ray tests + G-buffer shading. Forward only (the reference's custom
+    JVP — a recompute in plain ops — is a later slice).
+
+    offs = (x_off, y_off) pixel offsets of this block within the frame.
+    Returns flat [T*1024] tensors (min_t, px, py, pz, nx, ny, nz,
+    hit (f32 0/1), code_lo, code_hi), then metrics (int32 [T, 1, 4])
+    and the pair/compaction overflow (0-d int32).
+    """
+    from sphereflake_tpu_torch.models.sphereflake import (
+        child_templates,
+        root_frame,
+    )
+
+    root = root_frame(scene.camera.position)
+    templates = child_templates(scene.fractal)
+    frame = (frame_w, frame_h, offs[0], offs[1])
+    pairs, starts, lens, (_n, povf) = binned_pairs(
+        scene, cfg, root, templates, frame=frame
+    )
+    cam = camera_vector(scene, cfg, frame=frame)
+    out, m = trace_pairs_fused_soa(cam, pairs, starts, lens, cfg)
+    deep = cfg.max_depth >= 7
+    flat = lambda r: out[:, r].reshape(-1)
+    min_t = flat(0)
+    lo = flat(1)
+    hi = flat(2) if deep else torch.zeros_like(lo)
+    px, py, pz = flat(-6), flat(-5), flat(-4)
+    nx, ny, nz = flat(-3), flat(-2), flat(-1)
+    hit = ((lo >= 1.0) | (hi >= 1.0)).to(torch.float32)
+    return (min_t, px, py, pz, nx, ny, nz, hit, lo, hi, m, povf)
