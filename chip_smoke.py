@@ -6,23 +6,32 @@ a CUDA toolkit (`nvcc`) and PyTorch built for CUDA:
 
     python3 chip_smoke.py            # all phases, about a minute
     python3 chip_smoke.py --ptxas    # also print registers / shared memory
+                                     # and SASS branch / select counts
 
-It drives the port's main path — `render_frame` at 1920x1080, depth 6,
-the call `python -m sphereflake_tpu_torch` makes — and holds every
+It drives the port's main paths at 1920x1080, depth 6 — `render_frame`
+(the call `python -m sphereflake_tpu_torch` makes) and the frameless
+refresh (`--progressive`, `--animate --frameless`) — and holds every
 hand-written kernel against its plain torch version on the card.
-Phases, each printing one JSON line:
+Phases, each printing one or more JSON lines:
 
 1. device: card name and power limit, versions, kernel build seconds;
-2. kernels vs plain: the fused pairs kernel at the main path's shapes
-   (the 1080p depth-6 pair table) and its deep variant on a depth-8
-   dive pose;
-3. main path: the CLI's full-frame run to a PNG, then a few
-   `render_frame` calls with the camera moving; launch counts are set
-   to 0 just before and read just after; the same frame with the plain
-   version substituted must agree;
-4. times (CUDA events): ms/frame, the stage split, kernel vs plain vs
-   bound; and a `torch.profiler` view of one frame (device busy time,
-   idle share, launches per frame, top kernels);
+2. kernels vs plain: the pairs kernel in its three launch modes at the
+   main paths' shapes — full grid (the 1080p depth-6 pair table), tile
+   subset (`shade_only` and coded, on the trimmed table with the Sobol
+   ids of step 0) and ray bundles (one 65,536-sample batch of
+   `progressive_step`) — and their deep variants on a depth-8 dive pose;
+   the subset rows must equal the full-grid rows gathered at the ids;
+3. main paths, each with the launch counts set to 0 just before and read
+   just after: the CLI's full-frame run to a PNG and a few
+   `render_frame` calls with the camera moving (the same frame with the
+   plain version substituted must agree); then the frameless path:
+   trimmed prepare + 24 tile steps of 1,024 tiles, held against the full
+   render, and the same through the CLI (`--progressive` both units,
+   `--animate --frameless`);
+4. times (CUDA events): ms/frame and ms/step with their splits, kernels
+   vs plain vs bound; and `torch.profiler` views of one frame, one tile
+   step and one sample step (device busy time, idle share, launches,
+   top kernels);
 5. the `kernels` line, the card line, and the final `ok` line.
 
 Any failed check exits non-zero. Without a CUDA device, or outside the
@@ -61,6 +70,19 @@ AGREE_MIN = 0.9999
 ABS_ERR_MAX = 1e-4
 # Whole frame, kernel vs plain substituted (the stated main-path bar).
 FRAME_HIT_MIN = 0.999
+# The frameless operating point: 1,024 Sobol tiles per step on the
+# trimmed pair table, 24 steps to full coverage, seed 1; the accumulated
+# min_t plane must match the full render (rtol = atol = 1e-4) on at
+# least FRAME_HIT_MIN of the pixels, and the composite over the fully
+# covered buffer must match `render_frame`'s image within this.
+TILES_PER_STEP = 1024
+GATE_STEPS = 24
+COMPOSITE_ERR_MAX = 1e-5
+SAMPLE_BATCH = 65536
+# Operations of one ray-sphere test without the code select, and per ray
+# of the ray-bundle mode (no raygen, no shading: loads and stores only).
+OPS_PER_TEST_SHADE_ONLY = OPS_PER_TEST - 1
+OPS_PER_RAY_DIRS = 5
 
 
 def emit(phase: str, **kw):
@@ -210,6 +232,88 @@ def compare_rows(torch, out_k, out_p, deep: bool):
     )
 
 
+def compare_shaded(torch, out_k, out_p):
+    """Agreement of `shade_only` kernel rows with plain rows
+    [K, 7, 8, 128] (min_t, pos3, nrm3): a hit is min_t < BIG / 2."""
+    hit_k, hit_p = out_k[:, 0] < 1.5e38, out_p[:, 0] < 1.5e38
+    both = hit_k & hit_p
+    diff = (out_k - out_p).abs()
+    diff = torch.where(both[:, None], diff, torch.zeros_like(diff))
+    sky_equal = bool((out_k[:, 0][~hit_k] == out_p[:, 0][~hit_k]).all())
+    return dict(
+        rays=int(hit_k.numel()),
+        hit_fraction=float(hit_k.float().mean()),
+        hit_agree=float((hit_k == hit_p).float().mean()),
+        code_agree=1.0 if sky_equal else 0.0,  # no codes: sky min_t instead
+        max_abs_err=float(diff.max()),
+        max_abs_err_min_t=float(diff[:, 0].max()),
+    )
+
+
+def check_agreement(what, result, metrics_equal=True):
+    if (min(result["hit_agree"], result["code_agree"]) < AGREE_MIN
+            or result["max_abs_err"] > ABS_ERR_MAX or not metrics_equal):
+        fail(f"{what} disagrees with its plain version: {result}")
+
+
+def record_bundles(binned, step):
+    """Run `step()` and return the arguments of every ray-bundle kernel
+    launch it made (dirs_k, pairs, starts, lens, cfg), by wrapping the
+    module's launch function for the duration of the call."""
+    calls = []
+    launch = binned._launch_dirs_kernel
+
+    def recorder(*args):
+        calls.append(args)
+        return launch(*args)
+
+    binned._launch_dirs_kernel = recorder
+    try:
+        result = step()
+    finally:
+        binned._launch_dirs_kernel = launch
+    return result, calls
+
+
+def sass_summary(lib: str, nvcc: str):
+    """Instruction counts of every kernel in a built library, from
+    `cuobjdump -sass`: all, branches, selects, shared-memory loads
+    (how the compiler treated the loop's conditional update)."""
+    import re
+    from collections import Counter
+
+    exe = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    text = subprocess.run(
+        [exe, "-sass", lib], capture_output=True, text=True, check=True
+    ).stdout
+    out = {}
+    for fn in re.split(r"\n\s*Function : ", text)[1:]:
+        name = fn.split("\n")[0].strip()
+        args = re.search(r"ILi(\d)ELb(\d)ELb(\d)E", name)
+        if args:
+            name = "mode={} deep={} shade_only={}".format(*args.groups())
+        ops = Counter(
+            m.group(1).split(".")[0] for m in re.finditer(
+                r"^\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\d+\s+)?([A-Z0-9_.]+)",
+                fn, re.M,
+            )
+        )
+        out[name] = dict(
+            total=sum(ops.values()), BRA=ops["BRA"],
+            SEL=ops["SEL"] + ops["FSEL"], LDS=ops["LDS"],
+        )
+    return out
+
+
+def bound(bytes_moved, ops):
+    """(bound_ms, bound_by, bytes_ms, ops_ms) of work that moves
+    `bytes_moved` bytes and does `ops` f32 operations."""
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_FLOP_PER_S * 1e3
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations", bytes_ms, ops_ms)
+
+
 def main(argv) -> int:
     try:
         import torch
@@ -223,13 +327,29 @@ def main(argv) -> int:
     from sphereflake_tpu_torch.config import RenderConfig, default_scene
     from sphereflake_tpu_torch.ops import binned
     from sphereflake_tpu_torch.ops.binned import (
+        camera_vector,
         trace_pairs_fused_plain,
         trace_pairs_fused_soa,
+        trace_pairs_fused_subset,
+        trace_pairs_fused_subset_plain,
+        trace_pairs_pallas_soa,
+        trace_pairs_pallas_soa_plain,
     )
     from sphereflake_tpu_torch.render import (
         _untile_rows,
         render_frame,
         render_gbuffer,
+    )
+    from sphereflake_tpu_torch.runtime.progressive import (
+        progressive_init,
+        progressive_prepare,
+        progressive_prepare_trimmed,
+        progressive_step,
+        progressive_tile_ids,
+        progressive_tiles_init,
+        progressive_tiles_step,
+        tile_progressive_composite,
+        tile_progressive_gbuffer,
     )
 
     dev = torch.device("cuda")
@@ -246,6 +366,9 @@ def main(argv) -> int:
     build_s = time.perf_counter() - t0
     if "--ptxas" in argv:
         kernels.build(extra_flags=("-Xptxas", "-v"), verbose=True)
+        for lib in libs.values():
+            emit("sass", library=os.path.basename(lib),
+                 kernels=sass_summary(lib, kernels.find_nvcc()))
     emit(
         "device", card=card, torch=torch.__version__,
         cuda=torch.version.cuda, python=sys.version.split()[0],
@@ -313,6 +436,118 @@ def main(argv) -> int:
             or deep["max_abs_err"] > ABS_ERR_MAX
             or not bool((dm_k == dm_p).all())):
         fail(f"pairs_kernel (deep) disagrees with its plain version: {deep}")
+
+    # -- subset mode at the frameless operating point: the trimmed table
+    # and the 1,024 Sobol tile ids of step 0 (seed 1) ------------------
+    limits = dict(agree_min=AGREE_MIN, abs_err_max=ABS_ERR_MAX)
+    with torch.no_grad():
+        prep_full = progressive_prepare(scene, cfg, device=dev)
+        prep_trim = progressive_prepare_trimmed(scene, cfg, device=dev)
+        tpairs, tstarts, tlens, _tovf = prep_trim
+        st0 = progressive_tiles_init(cfg, seed=1, device=dev)
+        ids, _, _ = progressive_tile_ids(st0, cfg, TILES_PER_STEP)
+        ids_l = ids.long()
+        k2_args = (cam, tpairs, tstarts, tlens, ids, cfg)
+        k2s_k, k2s_mk = trace_pairs_fused_subset(*k2_args, shade_only=True)
+        k2c_k, k2c_mk = trace_pairs_fused_subset(*k2_args)
+        k1_trim, _ = trace_pairs_fused_soa(cam, tpairs, tstarts, tlens, cfg)
+        torch.cuda.synchronize()
+        k2s_p, k2s_mp = trace_pairs_fused_subset_plain(*k2_args, shade_only=True)
+        k2c_p, k2c_mp = trace_pairs_fused_subset_plain(*k2_args)
+    if k2s_k.shape != (TILES_PER_STEP, 7, 8, 128) or not k2s_k.is_cuda:
+        fail(f"subset kernel output {tuple(k2s_k.shape)} on {k2s_k.device}")
+    k2_lens_sum = int(tlens[ids_l].sum())
+    trim_dropped = 1.0 - int(tlens.sum()) / lens_sum
+    k2_shade = compare_shaded(torch, k2s_k, k2s_p)
+    k2_coded = compare_rows(torch, k2c_k, k2c_p, deep=False)
+    gathered = k1_trim[ids_l]
+    k2_eq_k1 = bool(torch.equal(k2c_k, gathered)) and bool(
+        torch.equal(k2s_k, gathered[:, [0, 2, 3, 4, 5, 6, 7]])
+    )
+    for variant, res, m_eq in (
+        ("shade_only", k2_shade, bool((k2s_mk == k2s_mp).all())),
+        ("coded", k2_coded, bool((k2c_mk == k2c_mp).all())),
+    ):
+        emit(
+            "kernel_vs_plain", kernel="pairs_kernel_subset", variant=variant,
+            shape=dict(ids=TILES_PER_STEP, distinct_ids=int(ids.unique().numel()),
+                       pairs_walked=k2_lens_sum,
+                       pairs_per_tile=round(k2_lens_sum / TILES_PER_STEP, 2),
+                       trim_dropped_fraction=trim_dropped),
+            metrics_equal=m_eq, equals_full_grid_rows_at_ids=k2_eq_k1,
+            limits=limits, **res,
+        )
+        check_agreement(f"pairs_kernel_subset ({variant})", res, m_eq)
+    if not k2_eq_k1:
+        fail("subset rows differ from the full-grid rows gathered at the ids")
+
+    # Deep variant: ids that repeat and are not sorted.
+    import numpy as np
+
+    d_tiles = dcfg.tiles_x * dcfg.tiles_y
+    ids_d = torch.from_numpy(
+        np.random.default_rng(0).integers(0, d_tiles, 48).astype(np.int32)
+    ).to(dev)
+    with torch.no_grad():
+        k2d_args = (dcam, dpairs, dstarts, dlens, ids_d, dcfg)
+        k2ds_k, k2ds_mk = trace_pairs_fused_subset(*k2d_args, shade_only=True)
+        k2dc_k, k2dc_mk = trace_pairs_fused_subset(*k2d_args)
+        torch.cuda.synchronize()
+        k2ds_p, k2ds_mp = trace_pairs_fused_subset_plain(*k2d_args, shade_only=True)
+        k2dc_p, k2dc_mp = trace_pairs_fused_subset_plain(*k2d_args)
+    k2d_shade = compare_shaded(torch, k2ds_k, k2ds_p)
+    k2d_coded = compare_rows(torch, k2dc_k, k2dc_p, deep=True)
+    k2d_eq_k1 = bool(torch.equal(k2dc_k, dout_k[ids_d.long()]))
+    for variant, res, m_eq in (
+        ("deep shade_only", k2d_shade, bool((k2ds_mk == k2ds_mp).all())),
+        ("deep coded", k2d_coded, bool((k2dc_mk == k2dc_mp).all())),
+    ):
+        emit(
+            "kernel_vs_plain", kernel="pairs_kernel_subset", variant=variant,
+            shape=dict(ids=int(ids_d.numel()),
+                       distinct_ids=int(ids_d.unique().numel())),
+            metrics_equal=m_eq, equals_full_grid_rows_at_ids=k2d_eq_k1,
+            limits=limits, **res,
+        )
+        check_agreement(f"pairs_kernel_subset ({variant})", res, m_eq)
+    if k2dc_k.shape[1] != 9 or not k2d_eq_k1:
+        fail("deep subset rows differ from the full-grid rows at the ids")
+
+    # -- ray-bundle mode: the bundles and spans of one sample step ------
+    def bundle_check(variant, b_scene, b_cfg, batch, prepared):
+        state = progressive_init(b_cfg, seed=1, device=dev)
+        _, calls = record_bundles(binned, lambda: progressive_step(
+            state, b_scene, b_cfg, batch_size=batch, prepared=prepared
+        ))
+        if len(calls) != 1:
+            fail(f"a sample step made {len(calls)} ray-bundle calls")
+        args = calls[0]
+        with torch.no_grad():
+            out_kk, m_kk = trace_pairs_pallas_soa(*args)
+            torch.cuda.synchronize()
+            out_pp, m_pp = trace_pairs_pallas_soa_plain(*args)
+        res = compare_rows(torch, out_kk, out_pp, deep=b_cfg.max_depth >= 7)
+        m_eq = bool((m_kk == m_pp).all())
+        b_lens = args[3]
+        emit(
+            "kernel_vs_plain", kernel="pairs_kernel_dirs", variant=variant,
+            shape=dict(bundles=int(b_lens.numel()), samples=batch,
+                       pairs_walked=int(b_lens.sum()),
+                       longest_span=int(b_lens.max())),
+            metrics_equal=m_eq, limits=limits, **res,
+        )
+        check_agreement(f"pairs_kernel_dirs ({variant})", res, m_eq)
+        return args, out_kk, res
+
+    k3_args, k3_out, k3_shallow = bundle_check(
+        "shallow", scene, cfg, SAMPLE_BATCH, prep_full
+    )
+    _, k3d_out, k3_deep = bundle_check(
+        "deep", dscene, dcfg, 8192,
+        progressive_prepare(dscene, dcfg, device=dev),
+    )
+    if k3_out.shape != (SAMPLE_BATCH // 1024, 5, 8, 128) or k3d_out.shape[1] != 6:
+        fail("ray-bundle kernel output has the wrong shape")
 
     # ---- phase 3: the main path ------------------------------------
     def frame(i):
@@ -383,6 +618,120 @@ def main(argv) -> int:
         fail(f"hit fraction {hit_fraction} is implausible")
     if hit_agree < FRAME_HIT_MIN or min_t_agree < FRAME_HIT_MIN:
         fail(f"frame with the plain version disagrees: {hit_agree}, {min_t_agree}")
+
+    # ---- phase 3b: the frameless path -------------------------------
+    counted = (trace_pairs_fused_soa, trace_pairs_fused_subset,
+               trace_pairs_pallas_soa)
+
+    def reset_counts():
+        for wrapper in counted:
+            wrapper.launches = 0
+
+    def read_counts():
+        torch.cuda.synchronize()
+        return [wrapper.launches for wrapper in counted]
+
+    def tile_steps(prepared, steps, seed=1):
+        st = progressive_tiles_init(cfg, seed=seed, device=dev)
+        for _ in range(steps):
+            st = progressive_tiles_step(
+                st, scene, cfg, tiles_per_step=TILES_PER_STEP,
+                prepared=prepared,
+            )
+        return st
+
+    reset_counts()
+    prepared = progressive_prepare_trimmed(scene, cfg, device=dev)
+    st = tile_steps(prepared, GATE_STEPS)
+    fl_counts = read_counts()
+    covered = int(st.covered.sum())
+    _pos_t, _nrm_t, mt_t, _hit_t = tile_progressive_gbuffer(st, cfg)
+    pixel_parity = float(torch.isclose(
+        mt_t, gb_kernel.min_t, rtol=1e-4, atol=1e-4
+    ).float().mean())
+    composite = tile_progressive_composite(st, scene, cfg)
+    image_full, _gb_full = render_frame(scene, cfg, device=dev)
+    composite_err = float((composite - image_full).abs().max())
+    st_untrimmed = tile_steps(prep_full, GATE_STEPS)
+    trim_invisible = bool(torch.equal(st.rows, st_untrimmed.rows)) and bool(
+        torch.equal(st.covered, st_untrimmed.covered)
+    )
+    frameless = dict(
+        steps=GATE_STEPS, tiles_per_step=TILES_PER_STEP, seed=1,
+        launches=dict(zip(("pairs_kernel", "pairs_kernel_subset",
+                           "pairs_kernel_dirs"), fl_counts)),
+        covered=covered, tiles=n_tiles, overflow=int(st.overflow),
+        prepare_overflow=int(prepared[3]),
+        samples_traced=st.samples_traced, sample_lo=st.sample_lo,
+        closest_distance=float(st.closest_distance),
+        pixel_parity=pixel_parity, composite_max_abs_err=composite_err,
+        trimmed_equals_untrimmed=trim_invisible,
+        trim_dropped_fraction=trim_dropped,
+        limits=dict(pixel_parity_min=FRAME_HIT_MIN,
+                    composite_err_max=COMPOSITE_ERR_MAX),
+    )
+    emit("frameless_path", **frameless)
+    if fl_counts != [1, GATE_STEPS, 0]:
+        fail(f"frameless launches {fl_counts}: expected one full-grid launch "
+             f"per prepare and one subset launch per step")
+    if covered != n_tiles or int(st.overflow) or int(prepared[3]):
+        fail(f"frameless run incomplete: {frameless}")
+    if pixel_parity < FRAME_HIT_MIN or composite_err > COMPOSITE_ERR_MAX:
+        fail(f"frameless buffer diverges from the full render: {frameless}")
+    if not trim_invisible:
+        fail("the trimmed table changed the accumulated state")
+    if st.samples_traced != GATE_STEPS * TILES_PER_STEP * 1024:
+        fail(f"samples_traced {st.samples_traced}")
+
+    # The same through the CLI: tile unit, sample unit, moving camera.
+    size_args = ["--width", str(WIDTH), "--height", str(HEIGHT),
+                 "--depth", str(DEPTH)]
+    cli_runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, extra, outputs in (
+            ("progressive_tile",
+             ["--progressive", str(GATE_STEPS), "--batch",
+              str(TILES_PER_STEP * 1024), "--seed", "1"],
+             ["out.png"]),
+            ("progressive_sample",
+             ["--progressive", "4", "--progressive-unit", "sample",
+              "--batch", str(SAMPLE_BATCH)],
+             ["out.png"]),
+            ("animate_frameless",
+             ["--animate", "3", "--frameless", "--batch",
+              str(TILES_PER_STEP * 1024)],
+             [f"out_{i:04d}.png" for i in range(3)]),
+        ):
+            reset_counts()
+            rc = cli_main(size_args + extra + ["-o", os.path.join(tmp, "out.png")])
+            cli_runs[name] = dict(
+                rc=rc, launches=read_counts(),
+                png_bytes=[
+                    os.path.getsize(os.path.join(tmp, f))
+                    if os.path.exists(os.path.join(tmp, f)) else 0
+                    for f in outputs
+                ],
+            )
+            for f in outputs:
+                if os.path.exists(os.path.join(tmp, f)):
+                    os.remove(os.path.join(tmp, f))
+    emit("frameless_cli", **cli_runs)
+    expected = dict(
+        progressive_tile=[1, GATE_STEPS, 0],
+        progressive_sample=[0, 0, 4],
+        animate_frameless=[0, 3 * 8, 0],  # 8 steps per camera step
+    )
+    for name, run in cli_runs.items():
+        if run["rc"] != 0 or min(run["png_bytes"]) < 10000:
+            fail(f"CLI {name} failed: {run}")
+        if run["launches"] != expected[name]:
+            fail(f"CLI {name} launched {run['launches']}, "
+                 f"expected {expected[name]}")
+    path_launches = [
+        launches + fl_counts[0] + cli_runs["progressive_tile"]["launches"][0],
+        fl_counts[1] + sum(r["launches"][1] for r in cli_runs.values()),
+        sum(r["launches"][2] for r in cli_runs.values()),
+    ]
 
     # ---- phase 4: times --------------------------------------------
     from sphereflake_tpu_torch.camera import corner_rays, tile_frustum_planes
@@ -468,10 +817,7 @@ def main(argv) -> int:
         + starts.numel() * 4 + lens.numel() * 4 + cam.numel() * 4
     )
     ops = lens_sum * 1024 * OPS_PER_TEST + n_tiles * 1024 * OPS_PER_RAY
-    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / F32_FLOP_PER_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    bound_ms, bound_by, bytes_ms, ops_ms = bound(bytes_moved, ops)
     emit(
         "times", card=card, width=WIDTH, height=HEIGHT, depth=DEPTH,
         frame_ms=frame_ms, gbuffer_ms=gbuffer_ms,
@@ -486,20 +832,252 @@ def main(argv) -> int:
         peak_memory_mb=torch.cuda.max_memory_allocated() / 2**20,
     )
 
+    # ---- phase 4b: times of the frameless path -----------------------
+    from sphereflake_tpu_torch.camera import ray_directions
+    from sphereflake_tpu_torch.ops.pallas_traversal import resolve_codes
+    from sphereflake_tpu_torch.ops.sobol import sobol_sample
+    from sphereflake_tpu_torch.runtime.progressive import (
+        _cursor_indices,
+        _hash_u32,
+    )
+
+    with torch.no_grad():
+        tile_state = {"st": progressive_tiles_init(cfg, seed=1, device=dev)}
+
+        def tile_step():
+            tile_state["st"] = progressive_tiles_step(
+                tile_state["st"], scene, cfg, tiles_per_step=TILES_PER_STEP,
+                prepared=prep_trim,
+            )
+
+        for _ in range(5):
+            tile_step()
+        step_ms = event_ms(torch, tile_step, 60)
+        step_prof = profile_device(torch, tile_step, 5)
+        ids_ms = event_ms(
+            torch, lambda: progressive_tile_ids(st0, cfg, TILES_PER_STEP), 20
+        )
+        cam_ms = event_ms(torch, lambda: camera_vector(scene, cfg), 20)
+        k2_ms = event_ms(
+            torch,
+            lambda: trace_pairs_fused_subset(*k2_args, shade_only=True), 50,
+        )
+        k2_coded_ms = event_ms(
+            torch, lambda: trace_pairs_fused_subset(*k2_args), 50
+        )
+        # Once more in the other order: the two flavours within one run.
+        k2_again_ms = event_ms(
+            torch,
+            lambda: trace_pairs_fused_subset(*k2_args, shade_only=True), 50,
+        )
+        k2_coded_again_ms = event_ms(
+            torch, lambda: trace_pairs_fused_subset(*k2_args), 50
+        )
+        k2_untrimmed_ms = event_ms(
+            torch,
+            lambda: trace_pairs_fused_subset(
+                cam, prep_full[0], prep_full[1], prep_full[2], ids, cfg,
+                shade_only=True,
+            ),
+            50,
+        )
+        k2_plain_ms = event_ms(
+            torch,
+            lambda: trace_pairs_fused_subset_plain(*k2_args, shade_only=True),
+            1,
+        )
+
+        def scatter():
+            rows = st.rows.clone()
+            rows[ids_l] = k2s_k
+            cov = st.covered.clone()
+            cov[ids_l] = True
+            return rows, cov, torch.min(k2s_k[:, 0])
+
+        scatter_ms = event_ms(torch, scatter, 20)
+        prepare_ms = event_ms(
+            torch, lambda: progressive_prepare(scene, cfg, device=dev), 5
+        )
+        prepare_trimmed_ms = event_ms(
+            torch, lambda: progressive_prepare_trimmed(scene, cfg, device=dev),
+            5,
+        )
+
+        # The sample step and its parts, on the recorded bundles.
+        sample_state = {"st": progressive_init(cfg, seed=1, device=dev)}
+
+        def sample_step():
+            sample_state["st"] = progressive_step(
+                sample_state["st"], scene, cfg, batch_size=SAMPLE_BATCH,
+                prepared=prep_full,
+            )
+
+        for _ in range(2):
+            sample_step()
+        sample_step_ms = event_ms(torch, sample_step, 10)
+        sample_prof = profile_device(torch, sample_step, 3)
+
+        def pixels():
+            idx_lo, idx_hi, _, _ = _cursor_indices(0, 0, SAMPLE_BATCH, dev)
+            sx = sobol_sample(idx_lo, 0, _hash_u32(1), idx_hi)
+            sy = sobol_sample(idx_lo, 1, _hash_u32(1 ^ 0x9E3779B9), idx_hi)
+            px = 1.0 + torch.floor(sx * (WIDTH - 2))
+            py = 1.0 + torch.floor(sy * (HEIGHT - 2))
+            return px, py, ray_directions(scene.camera, px, py, WIDTH, HEIGHT)
+
+        px_s, py_s, dirs_s = pixels()
+        xi, yi = px_s.to(torch.int32), py_s.to(torch.int32)
+        pix = yi * WIDTH + xi
+
+        def sorts():
+            tile_id = torch.div(yi, 32, rounding_mode="floor") * cfg.tiles_x + (
+                torch.div(xi, 32, rounding_mode="floor")
+            )
+            _, order = torch.sort(tile_id, stable=True)
+            inv = torch.empty_like(order)
+            inv[order] = torch.arange(SAMPLE_BATCH, device=dev)
+            return dirs_s[order], inv, torch.sort(pix, stable=True)
+
+        _, _, (pix_sorted, s_order) = sorts()
+        n_bundles = SAMPLE_BATCH // 1024
+        groups = torch.movedim(
+            k3_args[0].reshape(n_bundles, 3, 1024), 1, 2
+        ).contiguous()
+        codes = k3_out[:, 1].reshape(n_bundles, 1024)
+
+        def resolve():
+            return resolve_codes(
+                groups, codes, root, templates, scene.fractal, cfg
+            )
+
+        dst = torch.where(
+            torch.cat([pix_sorted[:-1] != pix_sorted[1:],
+                       torch.ones(1, dtype=torch.bool, device=dev)]),
+            pix_sorted, torch.full_like(pix_sorted, WIDTH * HEIGHT),
+        )
+        sst = sample_state["st"]
+
+        def sample_scatter():
+            res = []
+            for plane, upd in ((sst.position, dirs_s), (sst.normal, dirs_s),
+                               (sst.min_t, px_s)):
+                flat = plane.reshape(WIDTH * HEIGHT, *upd.shape[1:])
+                pad = torch.zeros((1, *upd.shape[1:]), device=dev)
+                out = torch.cat([flat, pad], dim=0)
+                out[dst] = upd[s_order]
+                res.append(out[: WIDTH * HEIGHT].reshape(plane.shape))
+            return res
+
+        sample_split = dict(
+            sobol_raygen=event_ms(torch, pixels, 10),
+            sorts=event_ms(torch, sorts, 10),
+            kernel=event_ms(
+                torch, lambda: trace_pairs_pallas_soa(*k3_args), 50
+            ),
+            resolve=event_ms(torch, resolve, 5),
+            scatter=event_ms(torch, sample_scatter, 10),
+        )
+        k3_ms = sample_split["kernel"]
+        k3_plain_ms = event_ms(
+            torch, lambda: trace_pairs_pallas_soa_plain(*k3_args), 1
+        )
+
+    for prof_view, per_ms, what in (
+        (step_prof, step_ms, "progressive_tiles_step 1080p d6, 1024 tiles"),
+        (sample_prof, sample_step_ms,
+         "progressive_step 1080p d6, 65536 samples"),
+    ):
+        if prof_view is not None:
+            prof_view["idle_share"] = 1.0 - prof_view["busy_ms"] / per_ms
+        emit("device_profile", what=what, **(prof_view or {
+            "busy_ms": None, "note": "torch.profiler reported no device time"
+        }))
+
+    # Bounds from this run's data. Subset mode, shade_only: 7 output rows
+    # and the metrics written once; of the pair columns inside the walked
+    # segments only the 6 rows it reads (no code row); ids, and one start
+    # and one length per id, read once.
+    k2_bytes = (
+        k2s_k.numel() * 4 + k2s_mk.numel() * 4
+        + k2_lens_sum * (tpairs.shape[0] - 1) * 4
+        + 3 * TILES_PER_STEP * 4 + cam.numel() * 4
+    )
+    k2_ops = (k2_lens_sum * 1024 * OPS_PER_TEST_SHADE_ONLY
+              + TILES_PER_STEP * 1024 * OPS_PER_RAY)
+    k2_bound_ms, k2_bound_by, k2_bytes_ms, k2_ops_ms = bound(k2_bytes, k2_ops)
+    # Ray-bundle mode: directions in, raw winner rows out, the pair
+    # columns of every span once.
+    k3_dirs, k3_pairs, _k3_starts, k3_lens, _ = k3_args
+    k3_lens_sum = int(k3_lens.sum())
+    k3_bytes = (
+        k3_dirs.numel() * 4 + k3_out.numel() * 4 + n_bundles * 16
+        + k3_lens_sum * k3_pairs.shape[0] * 4 + 2 * n_bundles * 4
+    )
+    k3_ops = (k3_lens_sum * 1024 * OPS_PER_TEST
+              + n_bundles * 1024 * OPS_PER_RAY_DIRS)
+    k3_bound_ms, k3_bound_by, k3_bytes_ms, k3_ops_ms = bound(k3_bytes, k3_ops)
+    emit(
+        "frameless_times", card=card, width=WIDTH, height=HEIGHT, depth=DEPTH,
+        tiles_per_step=TILES_PER_STEP, step_ms=step_ms,
+        rays_per_second=TILES_PER_STEP * 1024 / (step_ms * 1e-3),
+        step_split_ms=dict(ids=ids_ms, camera_pack=cam_ms, kernel=k2_ms,
+                           scatter=scatter_ms),
+        prepare_ms=prepare_ms, prepare_trimmed_ms=prepare_trimmed_ms,
+        trim_dropped_fraction=trim_dropped,
+        subset_kernel=dict(
+            ms=k2_ms, coded_ms=k2_coded_ms, ms_again=k2_again_ms,
+            coded_ms_again=k2_coded_again_ms,
+            untrimmed_table_ms=k2_untrimmed_ms,
+            plain_ms=k2_plain_ms, bound_ms=k2_bound_ms, bound_by=k2_bound_by,
+            bytes_ms=k2_bytes_ms, ops_ms=k2_ops_ms, bytes_moved=k2_bytes,
+            operations=k2_ops, pairs_walked=k2_lens_sum,
+        ),
+        sample_batch=SAMPLE_BATCH, sample_step_ms=sample_step_ms,
+        samples_per_second=SAMPLE_BATCH / (sample_step_ms * 1e-3),
+        sample_split_ms=sample_split,
+        dirs_kernel=dict(
+            ms=k3_ms, plain_ms=k3_plain_ms, bound_ms=k3_bound_ms,
+            bound_by=k3_bound_by, bytes_ms=k3_bytes_ms, ops_ms=k3_ops_ms,
+            bytes_moved=k3_bytes, operations=k3_ops,
+            pairs_walked=k3_lens_sum, longest_span=int(k3_lens.max()),
+        ),
+        peak_memory_mb=torch.cuda.max_memory_allocated() / 2**20,
+    )
+
     # ---- phase 5: the kernels line, the card, the verdict ----------
-    print(json.dumps({"kernels": [{
-        "name": "pairs_kernel",
-        "route": "cuda",
-        "source": "sphereflake_tpu_torch/csrc/pairs_kernel.cu",
-        "replaces": "sphereflake_tpu/ops/binned.py:1064",
-        "launches": launches,
-        "max_abs_err": max(shallow["max_abs_err"], deep["max_abs_err"]),
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": None,
-    }]}), flush=True)
+    # The three launch modes of one source. `launches` sums the main
+    # paths' runs (each counted from 0: frames, the 24-step frameless
+    # run, the three CLI runs); no single PyTorch call computes any of
+    # them, so `library_ms` is null.
+    source = "sphereflake_tpu_torch/csrc/pairs_kernel.cu"
+    print(json.dumps({"kernels": [
+        {
+            "name": "pairs_kernel", "route": "cuda", "source": source,
+            "replaces": "sphereflake_tpu/ops/binned.py:1064",
+            "launches": path_launches[0],
+            "max_abs_err": max(shallow["max_abs_err"], deep["max_abs_err"]),
+            "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
+        },
+        {
+            "name": "pairs_kernel_subset", "route": "cuda", "source": source,
+            "replaces": "sphereflake_tpu/ops/binned.py:1147",
+            "launches": path_launches[1],
+            "max_abs_err": max(r["max_abs_err"] for r in (
+                k2_shade, k2_coded, k2d_shade, k2d_coded)),
+            "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms,
+            "bound_by": k2_bound_by, "library_ms": None,
+        },
+        {
+            "name": "pairs_kernel_dirs", "route": "cuda", "source": source,
+            "replaces": "sphereflake_tpu/ops/binned.py:973",
+            "launches": path_launches[2],
+            "max_abs_err": max(k3_shallow["max_abs_err"],
+                               k3_deep["max_abs_err"]),
+            "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound_ms,
+            "bound_by": k3_bound_by, "library_ms": None,
+        },
+    ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

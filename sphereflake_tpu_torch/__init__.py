@@ -9,13 +9,17 @@ package (it keeps its own copy of every JAX-free helper it needs).
 Ported so far: the full-frame forward path,
 `render_frame` = `render_gbuffer` (algorithm "binned": global expansion
 -> screen-tile binning -> the fused raygen+trace+shade kernel -> untile)
-+ `postprocess` (SSAO -> blur x2 -> composite), and the CLI's
-full-frame branch (`python -m sphereflake_tpu_torch`).
++ `postprocess` (SSAO -> blur x2 -> composite); the frameless refresh
+path (`runtime/progressive.py`: Sobol-chosen tiles or pixels accumulated
+into one persistent G-buffer, through the kernel's subset and
+ray-bundle modes; `runtime/animate.py`: the camera moving meanwhile);
+and the CLI branches that drive them (`python -m sphereflake_tpu_torch`,
+`--progressive`, `--animate --frameless`).
 
 Every entry point takes an explicit `device` (default "cuda"); asking
 for "cuda" on a machine without one raises — nothing moves to the CPU
 on its own. Sub-packages mirror the reference (`ops/`, `models/`,
-`utils/`) so each counterpart is found under the same name.
+`runtime/`, `utils/`) so each counterpart is found under the same name.
 """
 
 __version__ = "0.1.0"

@@ -69,9 +69,47 @@ def geo_from_numpy(d, device="cuda") -> dict:
     }
 
 
+_CURSOR_FIELDS = ("sample_lo", "sample_hi", "seed", "samples_traced")
+
+
+def _state_from_numpy(cls, d, device):
+    """A frameless state dataclass from a dict of NumPy arrays keyed by
+    the reference's field names: the uint32 cursor fields (which the
+    port keeps on the host) become Python ints, everything else a
+    tensor on `device`."""
+    return cls(**{
+        f.name: (
+            int(np.asarray(d[f.name])) & 0xFFFFFFFF
+            if f.name in _CURSOR_FIELDS
+            else tensor_from_numpy(d[f.name], device)
+        )
+        for f in dataclasses.fields(cls)
+    })
+
+
+def tile_state_from_numpy(d, device="cuda"):
+    """The port's `TileProgressiveState` continuing a reference state
+    carried over as NumPy arrays (rows, covered, sample_lo, sample_hi,
+    seed, closest_distance, samples_traced, overflow)."""
+    from sphereflake_tpu_torch.runtime.progressive import TileProgressiveState
+
+    return _state_from_numpy(TileProgressiveState, d, device)
+
+
+def progressive_state_from_numpy(d, device="cuda"):
+    """The port's `ProgressiveState` continuing a reference state
+    carried over as NumPy arrays (position, normal, min_t, sample_lo,
+    sample_hi, seed, closest_distance, samples_traced, overflow)."""
+    from sphereflake_tpu_torch.runtime.progressive import ProgressiveState
+
+    return _state_from_numpy(ProgressiveState, d, device)
+
+
 def to_numpy(x):
     """Tensors (any device), and dicts / tuples / lists / dataclasses of
-    them, as NumPy arrays of the same structure."""
+    them, as NumPy arrays of the same structure (a dataclass — a scene,
+    a frameless state — becomes a dict by field name; Python ints, such
+    as a state's cursor, pass through)."""
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     if isinstance(x, dict):

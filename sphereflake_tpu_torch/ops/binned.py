@@ -20,6 +20,11 @@ walked once per frame:
    tile's segment and shades the winner to (min_t, position, normal).
    The kernel is hand-written CUDA (`csrc/pairs_kernel.cu`); its plain
    torch version (`trace_pairs_fused_plain`) lives here beside it.
+   Two more launch modes of the same kernel serve the frameless
+   refresh: an indirect list of tiles (`trace_pairs_fused_subset`) and
+   bundles of given ray directions against pair-table spans
+   (`trace_pairs_pallas_soa`), each with its plain version; the three
+   plain versions share one walk (`_walk_pairs`).
 
 All shapes are static functions of `RenderConfig` (`global_cap`,
 `pair_cap`, counted overflow): nothing between a frame's entry and its
@@ -456,29 +461,21 @@ def bin_nodes(nodes, minv, cfg: RenderConfig, frame=None, corners=None):
 
 
 # --------------------------------------------------------------------
-# The fused kernel: plain version, CUDA launch, wrapper.
+# The pairs kernel (`csrc/pairs_kernel.cu`) in its three launch modes —
+# full tile grid, tile subset, ray bundles — each with its plain torch
+# version, its CUDA launch and its wrapper.
 # --------------------------------------------------------------------
 
 
-def trace_pairs_fused_plain(cam, pairs, starts, lens, cfg: RenderConfig):
-    """Plain torch version of the fused kernel — the same function as
-    `csrc/pairs_kernel.cu` in eager ops, vectorised over [T, 1024] with
-    a loop over the segment position k, the same association order and
-    the same tie rule (winner = smallest (ts, k mod 8, k)). The CPU
-    tests use it, and the kernel is held against it on the card; it
-    reads max(lens) back to the host, so it is not a frame-path
-    function. Returns (out [T, 8|9, 8, 128], metrics [T, 1, 4])."""
-    T = cfg.tiles_y * cfg.tiles_x
-    deep = cfg.max_depth >= 7
-    dev = pairs.device
+def _tile_raygen(cam, tid, cfg: RenderConfig):
+    """Unit ray directions (dx, dy, dz), each [len(tid), 1024], of the
+    frame tiles `tid` from the 16-scalar camera pack — the kernel's
+    in-kernel raygen, same association order."""
     tile_w, tile_h, tiles_x = cfg.tile_w, cfg.tile_h, cfg.tiles_x
     assert tile_w & (tile_w - 1) == 0 and tile_w * tile_h == _RAYS
-    n_cols = pairs.shape[1]
-
-    flat = torch.arange(_RAYS, dtype=torch.int32, device=dev)
+    flat = torch.arange(_RAYS, dtype=torch.int32, device=tid.device)
     col = flat & (tile_w - 1)
     row = flat >> (tile_w.bit_length() - 1)
-    tid = torch.arange(T, dtype=torch.int32, device=dev)
     txs = tid % tiles_x
     tys = torch.div(tid, tiles_x, rounding_mode="floor")
     fpx = (txs[:, None] * tile_w + col[None, :]).to(torch.float32)
@@ -489,22 +486,34 @@ def trace_pairs_fused_plain(cam, pairs, starts, lens, cfg: RenderConfig):
     dy = (cam[1] + (cam[4] * u + cam[7] * v)) - cam[10]
     dz = (cam[2] + (cam[5] * u + cam[8] * v)) - cam[11]
     dnorm = torch.sqrt(dx * dx + dy * dy + dz * dz)
-    dx = dx / dnorm
-    dy = dy / dnorm
-    dz = dz / dnorm
+    return dx / dnorm, dy / dnorm, dz / dnorm
 
-    zero = torch.zeros((T, _RAYS), dtype=torch.float32, device=dev)
+
+def _walk_pairs(dx, dy, dz, pairs, row_start, row_len, deep: bool,
+                codes: bool = True):
+    """The kernel's loop, shared by the three plain versions: rays
+    [N, 1024] (dx, dy, dz) against the segment
+    pairs[:, row_start[n] : row_start[n] + row_len[n]] of their row n,
+    vectorised over [N, 1024] with a loop over the segment position k,
+    in the kernel's association order and with its tie rule (winner =
+    smallest (ts, k mod 8, k)). Returns the winner (bt, blo, bhi, bcx,
+    bcy, bcz), each [N, 1024]: bt stays BIG and the rest 0 where no
+    candidate passed; blo / bhi stay 0 without `codes` (bhi also when
+    not `deep`). Reads max(row_len) back to the host."""
+    n_rows, n_cols = dx.shape[0], pairs.shape[1]
+    dev = pairs.device
+    zero = torch.zeros((n_rows, _RAYS), dtype=torch.float32, device=dev)
     bt = torch.full_like(zero, _BIG)
     blo, bhi = zero, zero
     bcx, bcy, bcz = zero, zero, zero
-    bk7 = torch.zeros((T, _RAYS), dtype=torch.int32, device=dev)
+    bk7 = torch.zeros((n_rows, _RAYS), dtype=torch.int32, device=dev)
     r_lodr, r_rc4 = (6, 7) if deep else (5, 6)
-    starts_l = starts.long()
+    starts_l = row_start.long()
 
-    k_max = int(lens.max()) if T else 0
+    k_max = int(row_len.max()) if n_rows else 0
     for k in range(k_max):
-        in_seg = (k < lens)[:, None]  # [T, 1]
-        cols = pairs[:, torch.clamp_max(starts_l + k, n_cols - 1)]  # [R, T]
+        in_seg = (k < row_len)[:, None]  # [N, 1]
+        cols = pairs[:, torch.clamp_max(starts_l + k, n_cols - 1)]  # [R, N]
         cx, cy, cz = cols[0][:, None], cols[1][:, None], cols[2][:, None]
         rc = cols[3][:, None]
         lodr = cols[r_lodr][:, None]
@@ -518,57 +527,121 @@ def trace_pairs_fused_plain(cam, pairs, starts, lens, cfg: RenderConfig):
         better = ok & ((ts < bt) | ((ts == bt) & ((k & 7) < bk7)))
         bt = torch.where(better, ts, bt)
         bk7 = torch.where(better, torch.full_like(bk7, k & 7), bk7)
-        blo = torch.where(better, cols[4][:, None], blo)
-        if deep:
-            bhi = torch.where(better, cols[5][:, None], bhi)
+        if codes:
+            blo = torch.where(better, cols[4][:, None], blo)
+            if deep:
+                bhi = torch.where(better, cols[5][:, None], bhi)
         bcx = torch.where(better, cx, bcx)
         bcy = torch.where(better, cy, bcy)
         bcz = torch.where(better, cz, bcz)
+    return bt, blo, bhi, bcx, bcy, bcz
 
-    hit = blo >= 1.0
-    if deep:
-        hit = hit | (bhi >= 1.0)
+
+def _shade_rows(dx, dy, dz, winner, deep: bool, shade_only: bool = False):
+    """The kernel's G-buffer epilogue: [N, C, 8, 128] rows (min_t,
+    code_lo[, code_hi], pos3, nrm3) of the winner — or, with
+    `shade_only`, (min_t, pos3, nrm3) where a hit is "some candidate
+    beat the BIG init" and min_t is the accumulator itself."""
+    bt, blo, bhi, bcx, bcy, bcz = winner
+    zero = torch.zeros_like(bt)
+    if shade_only:
+        hit = bt < 0.5 * _BIG
+    else:
+        hit = blo >= 1.0
+        if deep:
+            hit = hit | (bhi >= 1.0)
     t0 = torch.where(hit, bt, zero)
     px, py, pz = dx * t0, dy * t0, dz * t0
     wx, wy, wz = px - bcx, py - bcy, pz - bcz
     nn = torch.sqrt(torch.clamp_min(wx * wx + wy * wy + wz * wz, 0.0))
     nn = torch.where(nn > 0.0, nn, torch.ones_like(nn))
     hf = hit.to(torch.float32)
-    rows = [torch.where(hit, bt, torch.full_like(bt, _BIG)), blo]
-    if deep:
-        rows.append(bhi)
+    if shade_only:
+        rows = [bt]
+    else:
+        rows = [torch.where(hit, bt, torch.full_like(bt, _BIG)), blo]
+        if deep:
+            rows.append(bhi)
     rows += [px, py, pz, hf * (wx / nn), hf * (wy / nn), hf * (wz / nn)]
-    out = torch.stack(rows, dim=1).reshape(T, len(rows), 8, 128)
-    metrics = torch.zeros((T, 1, 4), dtype=torch.int32, device=dev)
-    metrics[:, 0, 0] = lens
-    return out, metrics
+    return torch.stack(rows, dim=1).reshape(bt.shape[0], len(rows), 8, 128)
 
 
-def _check_kernel_inputs(cam, pairs, starts, lens, cfg: RenderConfig):
-    """Raise on anything the kernel does not take."""
-    T = cfg.tiles_y * cfg.tiles_x
-    n_rows = 8 if cfg.max_depth >= 7 else 7
-    tile_w = cfg.tile_w
-    if tile_w & (tile_w - 1) or tile_w * cfg.tile_h != _RAYS:
-        raise ValueError(
-            f"tile {cfg.tile_h}x{tile_w}: tile_w must be a power of two "
-            f"and tile_h * tile_w == {_RAYS}"
-        )
-    specs = (
-        ("cam", cam, torch.float32, (16,)),
-        ("pairs", pairs, torch.float32, (n_rows, None)),
-        ("starts", starts, torch.int32, (T,)),
-        ("lens", lens, torch.int32, (T,)),
+def _length_metrics(row_len):
+    """metrics [N, 1, 4] int32: column 0 is the segment length, the
+    rest 0 (a chunked walk drops nothing)."""
+    metrics = torch.zeros(
+        (row_len.shape[0], 1, 4), dtype=torch.int32, device=row_len.device
     )
+    metrics[:, 0, 0] = row_len
+    return metrics
+
+
+def trace_pairs_fused_plain(cam, pairs, starts, lens, cfg: RenderConfig):
+    """Plain torch version of the fused kernel's full-grid mode — the
+    same function as `csrc/pairs_kernel.cu` in eager ops (`_walk_pairs`).
+    The CPU tests use it, and the kernel is held against it on the
+    card; it reads max(lens) back to the host, so it is not a
+    frame-path function. Returns (out [T, 8|9, 8, 128], metrics
+    [T, 1, 4])."""
+    T = cfg.tiles_y * cfg.tiles_x
+    deep = cfg.max_depth >= 7
+    tid = torch.arange(T, dtype=torch.int32, device=pairs.device)
+    dx, dy, dz = _tile_raygen(cam, tid, cfg)
+    winner = _walk_pairs(dx, dy, dz, pairs, starts, lens, deep)
+    return _shade_rows(dx, dy, dz, winner, deep), _length_metrics(lens)
+
+
+def trace_pairs_fused_subset_plain(cam, pairs, starts, lens, tile_ids,
+                                   cfg: RenderConfig,
+                                   shade_only: bool = False):
+    """Plain torch version of the kernel's subset mode: row k holds
+    frame tile `tile_ids[k]`, whose segment comes from the full-frame
+    `starts` / `lens`. Returns (out [K, 7 | 8|9, 8, 128], metrics
+    [K, 1, 4]); with `shade_only` the 7 rows are (min_t, pos3, nrm3)."""
+    deep = cfg.max_depth >= 7
+    ids = tile_ids.long()
+    row_start, row_len = starts[ids], lens[ids]
+    dx, dy, dz = _tile_raygen(cam, tile_ids, cfg)
+    winner = _walk_pairs(
+        dx, dy, dz, pairs, row_start, row_len, deep, codes=not shade_only
+    )
+    return (
+        _shade_rows(dx, dy, dz, winner, deep, shade_only=shade_only),
+        _length_metrics(row_len),
+    )
+
+
+def trace_pairs_pallas_soa_plain(dirs_k, pairs, starts, lens,
+                                 cfg: RenderConfig):
+    """Plain torch version of the kernel's ray-bundle mode: bundle b's
+    1024 rays dirs_k[b] ([3, 8, 128]) against the span
+    pairs[:, starts[b] : starts[b] + lens[b]]. Returns the raw winner
+    (out [B, 5|6, 8, 128] = (t, code_lo[, code_hi], cx, cy, cz),
+    metrics [B, 1, 4])."""
+    B = dirs_k.shape[0]
+    deep = cfg.max_depth >= 7
+    d = dirs_k.reshape(B, 3, _RAYS)
+    bt, blo, bhi, bcx, bcy, bcz = _walk_pairs(
+        d[:, 0], d[:, 1], d[:, 2], pairs, starts, lens, deep
+    )
+    rows = [bt, blo] + ([bhi] if deep else []) + [bcx, bcy, bcz]
+    out = torch.stack(rows, dim=1).reshape(B, len(rows), 8, 128)
+    return out, _length_metrics(lens)
+
+
+def _check_tensors(specs, anchor):
+    """Raise on anything a kernel does not take. `specs` rows are
+    (name, tensor, dtype, shape with None for any size); every tensor
+    must lie on `anchor`'s device and be contiguous."""
     for name, x, _, _ in specs:
         if not isinstance(x, torch.Tensor):
             raise TypeError(f"{name} must be a torch.Tensor, got {type(x)}")
     for name, x, dtype, shape in specs:
         if x.dtype != dtype:
             raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
-        if x.device != pairs.device:
+        if x.device != anchor.device:
             raise ValueError(
-                f"{name} lies on {x.device}, pairs on {pairs.device}"
+                f"{name} lies on {x.device}, pairs on {anchor.device}"
             )
         if x.dim() != len(shape) or any(
             s is not None and s != d for s, d in zip(shape, x.shape)
@@ -580,36 +653,74 @@ def _check_kernel_inputs(cam, pairs, starts, lens, cfg: RenderConfig):
             raise ValueError(f"{name} must be contiguous")
 
 
-def _launch_pairs_kernel(cam, pairs, starts, lens, cfg: RenderConfig):
-    """Enqueue `csrc/pairs_kernel.cu` on the current stream."""
+def _check_kernel_inputs(cam, pairs, starts, lens, cfg: RenderConfig,
+                         tile_ids=None):
+    """Raise on anything the fused (raygen) modes do not take."""
+    T = cfg.tiles_y * cfg.tiles_x
+    n_rows = 8 if cfg.max_depth >= 7 else 7
+    tile_w = cfg.tile_w
+    if tile_w & (tile_w - 1) or tile_w * cfg.tile_h != _RAYS:
+        raise ValueError(
+            f"tile {cfg.tile_h}x{tile_w}: tile_w must be a power of two "
+            f"and tile_h * tile_w == {_RAYS}"
+        )
+    specs = [
+        ("cam", cam, torch.float32, (16,)),
+        ("pairs", pairs, torch.float32, (n_rows, None)),
+        ("starts", starts, torch.int32, (T,)),
+        ("lens", lens, torch.int32, (T,)),
+    ]
+    if tile_ids is not None:
+        specs.append(("tile_ids", tile_ids, torch.int32, (None,)))
+    _check_tensors(specs, pairs)
+
+
+def _kernel_fn(name: str, n_ptrs: int, n_ints: int):
+    """Entry point `name` of the built pairs-kernel library, taking
+    `n_ptrs` device pointers, `n_ints` ints and the stream."""
     from sphereflake_tpu_torch import kernels
 
-    lib = kernels.load("pairs_kernel")
-    fn = lib.sf_trace_pairs_fused
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn = getattr(kernels.load("pairs_kernel"), name)
+    fn.argtypes = (
+        [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+        + [ctypes.c_void_p]
+    )
     fn.restype = ctypes.c_int
-    T = cfg.tiles_y * cfg.tiles_x
-    deep = cfg.max_depth >= 7
-    n_out = 9 if deep else 8
-    dev = pairs.device
-    out = torch.empty((T, n_out, 8, 128), dtype=torch.float32, device=dev)
-    metrics = torch.empty((T, 1, 4), dtype=torch.int32, device=dev)
-    # The launch is asynchronous and ctypes keeps no reference to the
-    # tensors: that is safe because the launch goes to the current
-    # stream, and the caching allocator reuses a freed block only in
-    # stream order.
+    return fn
+
+
+def _enqueue(fn, name: str, tensors, ints, dev):
+    """Launch on the current stream of `dev`; raise if the launch was
+    refused. The launch is asynchronous and ctypes keeps no reference
+    to the tensors: that is safe because the launch goes to the current
+    stream, and the caching allocator reuses a freed block only in
+    stream order."""
     with torch.cuda.device(dev):
         err = fn(
-            cam.data_ptr(), pairs.data_ptr(), starts.data_ptr(),
-            lens.data_ptr(), out.data_ptr(), metrics.data_ptr(),
-            T, pairs.shape[1], cfg.tile_w.bit_length() - 1, cfg.tile_h,
-            cfg.tiles_x, int(deep),
+            *(x.data_ptr() for x in tensors), *ints,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(
-            f"pairs_kernel launch failed: cudaGetLastError() = {err}"
+            f"pairs_kernel launch ({name}) failed: cudaGetLastError() = {err}"
         )
+
+
+def _launch_pairs_kernel(cam, pairs, starts, lens, cfg: RenderConfig):
+    """Enqueue the full-grid mode of `csrc/pairs_kernel.cu`."""
+    fn = _kernel_fn("sf_trace_pairs_fused", 6, 6)
+    T = cfg.tiles_y * cfg.tiles_x
+    deep = cfg.max_depth >= 7
+    dev = pairs.device
+    out = torch.empty((T, 9 if deep else 8, 8, 128), dtype=torch.float32,
+                      device=dev)
+    metrics = torch.empty((T, 1, 4), dtype=torch.int32, device=dev)
+    _enqueue(
+        fn, "full", (cam, pairs, starts, lens, out, metrics),
+        (T, pairs.shape[1], cfg.tile_w.bit_length() - 1, cfg.tile_h,
+         cfg.tiles_x, int(deep)),
+        dev,
+    )
     trace_pairs_fused_soa.launches += 1
     return out, metrics
 
@@ -640,6 +751,141 @@ def trace_pairs_fused_soa(
 
 
 trace_pairs_fused_soa.launches = 0
+
+
+def _launch_subset_kernel(cam, pairs, starts, lens, tile_ids,
+                          cfg: RenderConfig, shade_only: bool):
+    """Enqueue the subset mode of `csrc/pairs_kernel.cu`."""
+    K = tile_ids.shape[0]
+    deep = cfg.max_depth >= 7
+    n_out = 7 if shade_only else (9 if deep else 8)
+    dev = pairs.device
+    out = torch.empty((K, n_out, 8, 128), dtype=torch.float32, device=dev)
+    metrics = torch.empty((K, 1, 4), dtype=torch.int32, device=dev)
+    if K == 0:
+        return out, metrics
+    fn = _kernel_fn("sf_trace_pairs_fused_subset", 7, 7)
+    _enqueue(
+        fn, "subset", (cam, pairs, starts, lens, tile_ids, out, metrics),
+        (K, pairs.shape[1], cfg.tile_w.bit_length() - 1, cfg.tile_h,
+         cfg.tiles_x, int(deep), int(shade_only)),
+        dev,
+    )
+    trace_pairs_fused_subset.launches += 1
+    return out, metrics
+
+
+def trace_pairs_fused_subset(
+    cam: torch.Tensor,  # [16] f32 camera pack (`camera_vector`)
+    pairs: torch.Tensor,  # [7|8, cfg.pair_cap] f32
+    starts: torch.Tensor,  # [T] int32 — FULL frame segment table
+    lens: torch.Tensor,  # [T] int32
+    tile_ids: torch.Tensor,  # [K] int32 frame tile ids to render
+    cfg: RenderConfig,
+    shade_only: bool = False,
+):
+    """Fused raygen+trace+shade for an arbitrary SUBSET of the frame's
+    tiles — the frameless refresh unit: whole 1024-ray tiles are
+    refreshed the way the C++ app refreshes 8-ray packets. Row k of the
+    output renders frame tile `tile_ids[k]`; starts/lens stay the
+    full-frame tables; ids may repeat and come in any order. Returns
+    (out [K, C, 8, 128], metrics [K, 1, 4]) with the rows of
+    `trace_pairs_fused_soa` — or, with `shade_only`, exactly 7 rows
+    (min_t, pos3, nrm3; min_t is BIG at sky): the code rows are neither
+    read nor accumulated, for callers that never read codes.
+
+    Every id must lie in [0, T): that is the caller's contract (an id
+    outside reads outside the tables). CUDA tensors launch the
+    hand-written kernel (or raise); CPU tensors run the plain version.
+    K = 0 returns empty outputs without a launch.
+    `trace_pairs_fused_subset.launches` counts kernel launches."""
+    _check_kernel_inputs(cam, pairs, starts, lens, cfg, tile_ids=tile_ids)
+    if pairs.device.type == "cuda":
+        return _launch_subset_kernel(
+            cam, pairs, starts, lens, tile_ids, cfg, shade_only
+        )
+    return trace_pairs_fused_subset_plain(
+        cam, pairs, starts, lens, tile_ids, cfg, shade_only=shade_only
+    )
+
+
+trace_pairs_fused_subset.launches = 0
+
+
+def _launch_dirs_kernel(dirs_k, pairs, starts, lens, cfg: RenderConfig):
+    """Enqueue the ray-bundle mode of `csrc/pairs_kernel.cu`."""
+    B = dirs_k.shape[0]
+    deep = cfg.max_depth >= 7
+    dev = pairs.device
+    out = torch.empty((B, 6 if deep else 5, 8, 128), dtype=torch.float32,
+                      device=dev)
+    metrics = torch.empty((B, 1, 4), dtype=torch.int32, device=dev)
+    if B == 0:
+        return out, metrics
+    fn = _kernel_fn("sf_trace_pairs_dirs", 6, 3)
+    _enqueue(
+        fn, "dirs", (dirs_k, pairs, starts, lens, out, metrics),
+        (B, pairs.shape[1], int(deep)), dev,
+    )
+    trace_pairs_pallas_soa.launches += 1
+    return out, metrics
+
+
+def trace_pairs_pallas_soa(
+    dirs_k: torch.Tensor,  # [B, 3, 8, 128] f32 unit directions, ray-major
+    pairs: torch.Tensor,  # [7|8, cfg.pair_cap] f32
+    starts: torch.Tensor,  # [B] int32 per-bundle span starts
+    lens: torch.Tensor,  # [B] int32 per-bundle span lengths
+    cfg: RenderConfig,
+):
+    """Ray tests of 1024-ray bundles against spans of the pair table,
+    directions given (the sample-granular frameless mode: bundles of
+    tile-sorted Sobol pixels, each against the union of the segments of
+    the tiles it touches). Returns (out [B, C, 8, 128], metrics
+    [B, 1, 4]) with the raw winner rows (t, code_lo[, code_hi], cx, cy,
+    cz): C = 6 when cfg.max_depth >= 7, else 5; t stays BIG and the
+    rest 0 where no candidate passed. The name is the reference
+    package's (its kernel is written in Pallas).
+
+    CUDA tensors launch the hand-written kernel (or raise); CPU tensors
+    run the plain version. B = 0 returns empty outputs without a
+    launch. `trace_pairs_pallas_soa.launches` counts kernel launches."""
+    n_rows = 8 if cfg.max_depth >= 7 else 7
+    B = dirs_k.shape[0] if isinstance(dirs_k, torch.Tensor) else None
+    _check_tensors(
+        [
+            ("dirs_k", dirs_k, torch.float32, (None, 3, 8, 128)),
+            ("pairs", pairs, torch.float32, (n_rows, None)),
+            ("starts", starts, torch.int32, (B,)),
+            ("lens", lens, torch.int32, (B,)),
+        ],
+        pairs,
+    )
+    if pairs.device.type == "cuda":
+        return _launch_dirs_kernel(dirs_k, pairs, starts, lens, cfg)
+    return trace_pairs_pallas_soa_plain(dirs_k, pairs, starts, lens, cfg)
+
+
+trace_pairs_pallas_soa.launches = 0
+
+
+def trace_pairs_pallas(tile_dirs, pairs, starts, lens, cfg: RenderConfig):
+    """Per-bundle ray tests against pair-table spans (AoS directions
+    wrapper over `trace_pairs_pallas_soa`): tile_dirs [B, 1024, 3].
+    Returns (min_t [B, 1024], code_lo [B, 1024], code_hi [B, 1024] or
+    None, metrics [B, 1, 4]); the winner's centre rows are dropped."""
+    B, rays, _ = tile_dirs.shape
+    assert rays == _RAYS
+    dirs_k = torch.movedim(tile_dirs, 2, 1).reshape(B, 3, 8, 128).contiguous()
+    out, metrics = trace_pairs_pallas_soa(dirs_k, pairs, starts, lens, cfg)
+    deep = cfg.max_depth >= 7
+    code_hi = out[:, 2].reshape(B, rays) if deep else None
+    return (
+        out[:, 0].reshape(B, rays),
+        out[:, 1].reshape(B, rays),
+        code_hi,
+        metrics,
+    )
 
 
 def binned_pairs(scene, cfg: RenderConfig, root, templates, frame=None):

@@ -5,8 +5,15 @@
 import dataclasses
 
 import numpy as np
+import torch
 
 from sphereflake_tpu_torch.convert import scene_from_numpy
+
+# The plain versions of the kernels are loops of thousands of tiny eager
+# ops; torch's intra-op thread pool only adds hand-over cost there, and
+# with several test workers on one machine its spinning threads starve
+# each other (a 20 s test took 15 minutes). One thread per worker.
+torch.set_num_threads(1)
 
 
 def scene_to_numpy(scene):

@@ -9,6 +9,8 @@ import torch
 
 from sphereflake_tpu_torch.cli import build_parser, main
 
+import _torch_helpers  # noqa: F401  (one torch thread per test worker)
+
 
 def _common(*extra):
     return ["--device", "cpu", "--width", "96", "--height", "64",
@@ -76,11 +78,16 @@ def test_capacity_retry_loop_recovers_from_overflow(tmp_path, capsys):
 
 def test_unported_flags_are_not_declared():
     flags = {s for a in build_parser()._actions for s in a.option_strings}
-    for flag in ("--fit", "--progressive", "--animate", "--mesh",
-                 "--devices", "--resume", "--checkpoint", "--profile",
-                 "--platform"):
+    for flag in ("--fit", "--mesh", "--devices", "--resume", "--checkpoint",
+                 "--profile", "--platform", "--frame-parallel"):
         assert flag not in flags
     assert "--device" in flags and "--frames" in flags
+    # the frameless branches are ported
+    for flag in ("--progressive", "--batch", "--progressive-unit",
+                 "--snapshot-every", "--no-trim-prepared", "--seed",
+                 "--animate", "--animate-mode", "--speed-factor",
+                 "--frameless"):
+        assert flag in flags
 
 
 def test_cuda_without_a_card_is_an_error_not_a_cpu_run(tmp_path, capsys):

@@ -123,6 +123,69 @@ def test_render_gbuffer_depth7_two_lane_codes():
     assert int(got.metrics.overflow) == int(want.metrics.overflow)
 
 
+def test_render_gbuffer_depth13_boundary_well_formed():
+    """Level 13 is the deepest renderable level (two-lane f32 code
+    exactness, `DEEP_MAX_DEPTH`): a dive close enough for the LOD cut to
+    admit it produces well-formed geometry there — finite hit distances
+    and unit normals at every hit — and reaches the depth the reference
+    reaches; max_depth = 14 is rejected with the precision explanation.
+    (The per-level compaction cap overflows this deep inside, on both
+    sides; the drop policy is farthest-first, so near geometry — what is
+    checked here — survives.)"""
+    kw = dict(width=64, height=32, max_depth=13, global_cap=1 << 15)
+    got, want = _both(dive_scene(hover=1.25e-5), **kw)
+    hit = got.hit.numpy()
+    assert hit.mean() > 0.5
+    assert (hit == np.asarray(want.hit)).mean() >= 0.99
+    depth = int(got.metrics.max_depth_reached)
+    assert depth >= 12 and depth == int(want.metrics.max_depth_reached)
+    mt = got.min_t.numpy()[hit]
+    assert np.isfinite(mt).all() and (mt > 0).all() and (mt < 1.0).all()
+    nlen = np.linalg.norm(got.normal.numpy()[hit], axis=-1)
+    assert np.abs(nlen - 1.0).max() < 1e-3
+    assert (got.min_t.numpy()[~hit] == _BIG).all()
+    with pytest.raises(ValueError, match="f32"):
+        PortConfig(width=64, height=32, max_depth=14, **_BINNED)
+
+
+def test_interior_pose_pair_count_bounded():
+    """Behind-camera nodes must not bin to the ENTIRE tile grid: the
+    corner-ray cull keeps an inside-the-geometry pose (camera just above
+    a level-1 child, looking outward) within a small multiple of the
+    frontal pose's pair count — and at the reference's own count (ulp
+    differences in the camera trig may move a node across a tile edge:
+    0.5 %)."""
+    from sphereflake_tpu.models import sphereflake as ref_model
+    from sphereflake_tpu.ops import binned as ref_binned
+    from sphereflake_tpu_torch.models import sphereflake as port_model
+    from sphereflake_tpu_torch.ops import binned as port_binned
+
+    kw = dict(width=256, height=128, max_depth=4, **_BINNED)
+
+    def counts(scene):
+        ps = port_scene(scene)
+        _, _, lens, (n_port, ovf) = port_binned.binned_pairs(
+            ps, PortConfig(**kw), port_model.root_frame(ps.camera.position),
+            port_model.child_templates(ps.fractal),
+        )
+        assert int(ovf) == 0 and int(lens.sum()) == int(n_port)
+        _, _, _, (n_ref, _) = ref_binned.binned_pairs(
+            scene, RefConfig(**kw), ref_model.root_frame(scene.camera.position),
+            ref_model.child_templates(scene.fractal),
+        )
+        return int(n_port), int(n_ref)
+
+    scene = default_scene()
+    cam = dataclasses.replace(
+        scene.camera, position=jnp.asarray([0.0, 0.2, 1.1], jnp.float32)
+    )
+    n_front, n_front_ref = counts(scene)
+    n_inside, n_inside_ref = counts(dataclasses.replace(scene, camera=cam))
+    assert n_inside < 4 * n_front, (n_inside, n_front)
+    assert abs(n_front - n_front_ref) <= 0.005 * n_front_ref
+    assert abs(n_inside - n_inside_ref) <= 0.005 * n_inside_ref
+
+
 @pytest.mark.parametrize("rows", [2, 1])
 def test_banded_matches_whole_frame(rows):
     """Banded rendering (one bin + one kernel launch per band, a Python
