@@ -4,15 +4,16 @@
 Run from the repository root on a machine with one NVIDIA Hopper card,
 a CUDA toolkit (`nvcc`) and PyTorch built for CUDA:
 
-    python3 chip_smoke.py            # all phases, about a minute
+    python3 chip_smoke.py            # all phases, a minute or two
     python3 chip_smoke.py --ptxas    # also print registers / shared memory
                                      # and SASS branch / select counts
 
 It drives the port's main paths at 1920x1080, depth 6 — `render_frame`
-(the call `python -m sphereflake_tpu_torch` makes) and the frameless
-refresh (`--progressive`, `--animate --frameless`) — and holds every
-hand-written kernel against its plain torch version on the card.
-Phases, each printing one or more JSON lines:
+(the call `python -m sphereflake_tpu_torch` makes), the frameless
+refresh (`--progressive`, `--animate --frameless`) and the per-tile
+traversal path (`--algorithm pallas`, full frame and sample unit) — and
+holds every hand-written kernel against its plain torch version on the
+card. Phases, each printing one or more JSON lines:
 
 1. device: card name and power limit, versions, kernel build seconds;
 2. kernels vs plain: the pairs kernel in its three launch modes at the
@@ -21,17 +22,26 @@ Phases, each printing one or more JSON lines:
    ids of step 0) and ray bundles (one 65,536-sample batch of
    `progressive_step`) — and their deep variants on a depth-8 dive pose;
    the subset rows must equal the full-grid rows gathered at the ids;
+   then the traversal kernel on the bundles of a 1080p depth-6 pallas
+   frame, on the 64 Sobol bundles of a 65,536-sample step, at a depth-7
+   dive, in a constructed overflow case, and at frontiers past one
+   block's shared memory (codes, hit masks and all 8 metrics equal, t
+   within 1e-4);
 3. main paths, each with the launch counts set to 0 just before and read
    just after: the CLI's full-frame run to a PNG and a few
    `render_frame` calls with the camera moving (the same frame with the
    plain version substituted must agree); then the frameless path:
    trimmed prepare + 24 tile steps of 1,024 tiles, held against the full
    render, and the same through the CLI (`--progressive` both units,
-   `--animate --frameless`);
+   `--animate --frameless`); then the per-tile path: `render_frame`
+   and the CLI with `--algorithm pallas` (one traversal launch per
+   frame, none of the pair kernel; held against the binned frame), the
+   CLI's sample unit on it, and the `fast` fallback once at 512x256
+   depth 4 against `pallas`;
 4. times (CUDA events): ms/frame and ms/step with their splits, kernels
    vs plain vs bound; and `torch.profiler` views of one frame, one tile
    step and one sample step (device busy time, idle share, launches,
-   top kernels);
+   top kernels); the pallas frame and its split, the pallas sample step;
 5. the `kernels` line, the card line, and the final `ok` line.
 
 Any failed check exits non-zero. Without a CUDA device, or outside the
@@ -83,6 +93,30 @@ SAMPLE_BATCH = 65536
 # of the ray-bundle mode (no raygen, no shading: loads and stores only).
 OPS_PER_TEST_SHADE_ONLY = OPS_PER_TEST - 1
 OPS_PER_RAY_DIRS = 5
+# The traversal kernel. One ray test against a queued node: 5 for the dot
+# product, 2 for d2, 1 for c1, 5 for the LOD gate (compare, square,
+# 4r^2 - d2, compare, or), 4 for ok (2 compares, 2 ands), 4 for ts
+# (subtract, max, sqrt, subtract), 2 for the strict compare and its and,
+# 2 selects (t, code).
+OPS_PER_TRAVERSE_TEST = 25
+# One child examined by the expansion: 18 for its centre (3 x (3 multiplies
+# + 3 adds)), 5 for |c|^2, 1 LOD compare, 4 x 7 for the planes (3 multiplies,
+# 2 adds, compare, and), 1 for the parent's validity, 2 for its code. (The
+# 45 of a survivor's rotation are left out: most children are culled.)
+OPS_PER_CHILD = 55
+# The pallas frame against the binned frame of the same scene: the two
+# paths cull and round differently at tangents, so hit masks agree on at
+# least CROSS_HIT_MIN of the pixels. Their min_t differ where f32 gives
+# out: t = tca - sqrt(r^2 - d2) with d2 = |c|^2 - tca^2 rounded to about
+# 1e-5 at |c| = 8, against r^2 = 1.7e-5 at level 5 (the deepest level the
+# LOD cut lets through at this pose) — the same winner, its sqrt term
+# uncertain by a good part of its radius, on either path. So min_t must be
+# within rtol = atol = 1e-4 on CROSS_T_CLOSE_MIN of the common hits (levels
+# 0 to 4 hold 0.99 each, level 5 two thirds) and within one radius of the
+# deepest level reached on CROSS_T_LEAF_MIN of them.
+CROSS_HIT_MIN = 0.999
+CROSS_T_CLOSE_MIN = 0.93
+CROSS_T_LEAF_MIN = 0.98
 
 
 def emit(phase: str, **kw):
@@ -256,23 +290,51 @@ def check_agreement(what, result, metrics_equal=True):
         fail(f"{what} disagrees with its plain version: {result}")
 
 
-def record_bundles(binned, step):
-    """Run `step()` and return the arguments of every ray-bundle kernel
-    launch it made (dirs_k, pairs, starts, lens, cfg), by wrapping the
-    module's launch function for the duration of the call."""
+def record_launches(module, name, step):
+    """Run `step()` and return the arguments of every call it made to
+    the launch function `module.name`, by wrapping that function for
+    the duration of the call."""
     calls = []
-    launch = binned._launch_dirs_kernel
+    launch = getattr(module, name)
 
     def recorder(*args):
         calls.append(args)
         return launch(*args)
 
-    binned._launch_dirs_kernel = recorder
+    setattr(module, name, recorder)
     try:
         result = step()
     finally:
-        binned._launch_dirs_kernel = launch
+        setattr(module, name, launch)
     return result, calls
+
+
+def record_bundles(binned, step):
+    """The arguments of every ray-bundle kernel launch of `step()`
+    (dirs_k, pairs, starts, lens, cfg)."""
+    return record_launches(binned, "_launch_dirs_kernel", step)
+
+
+def compare_traversal(torch, out_k, m_k, out_p, m_p):
+    """Agreement of traversal-kernel outputs [T, 2, 8, 128] (t, code)
+    and metrics [T, 1, 8] with the plain version's."""
+    code_k, code_p = out_k[:, 1], out_p[:, 1]
+    hit_k, hit_p = code_k >= 1.0, code_p >= 1.0
+    diff = (out_k[:, 0] - out_p[:, 0]).abs()
+    diff = torch.where(hit_k & hit_p, diff, torch.zeros_like(diff))
+    m = m_k[:, 0].long()
+    return dict(
+        rays=int(hit_k.numel()),
+        hit_fraction=float(hit_k.float().mean()),
+        hit_equal=bool(torch.equal(hit_k, hit_p)),
+        codes_equal=bool(torch.equal(code_k, code_p)),
+        metrics_equal=bool(torch.equal(m_k, m_p)),
+        miss_t_equal=bool(torch.equal(out_k[:, 0][~hit_k], out_p[:, 0][~hit_k])),
+        max_abs_err=float(diff.max()),
+        queue_nodes=int(m[:, 0].sum()), longest_queue=int(m[:, 0].max()),
+        overflow=int(m[:, 1].sum()), deepest_level=int(m[:, 2].max()),
+        last_level_live=int(m[:, 3].sum()),
+    )
 
 
 def sass_summary(lib: str, nvcc: str):
@@ -326,6 +388,7 @@ def main(argv) -> int:
     from sphereflake_tpu_torch.cli import main as cli_main
     from sphereflake_tpu_torch.config import RenderConfig, default_scene
     from sphereflake_tpu_torch.ops import binned
+    from sphereflake_tpu_torch.ops import pallas_traversal as ptrav
     from sphereflake_tpu_torch.ops.binned import (
         camera_vector,
         trace_pairs_fused_plain,
@@ -354,6 +417,7 @@ def main(argv) -> int:
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
+    t_script = time.perf_counter()
 
     # ---- phase 1: device and build --------------------------------
     card = subprocess.run(
@@ -549,6 +613,107 @@ def main(argv) -> int:
     if k3_out.shape != (SAMPLE_BATCH // 1024, 5, 8, 128) or k3d_out.shape[1] != 6:
         fail("ray-bundle kernel output has the wrong shape")
 
+    # -- the traversal kernel, on the launches the per-tile path makes ---
+    pcfg = dataclasses.replace(cfg, algorithm="pallas")
+
+    def traverse_launch_args(step):
+        """The arguments of the one traversal launch `step()` makes."""
+        _, calls = record_launches(ptrav, "_launch_traverse_kernel", step)
+        if len(calls) != 1:
+            fail(f"{len(calls)} traversal launches in a step, expected 1")
+        return calls[0]
+
+    def traverse_check(variant, args, shape):
+        """Run the wrapper on the recorded launch's tensors and hold it
+        against the plain version."""
+        t_cfg = args[-1]
+        with torch.no_grad():
+            out_kk, m_kk = ptrav.trace_tiles_pallas_soa(*args)
+            torch.cuda.synchronize()
+            out_pp, m_pp = ptrav.trace_tiles_pallas_soa_plain(
+                *args[:-1], dataclasses.replace(t_cfg, tile_batch=128)
+            )
+        res = compare_traversal(torch, out_kk, m_kk, out_pp, m_pp)
+        shared_bytes = ptrav.kernel_shared_bytes(t_cfg)
+        emit(
+            "kernel_vs_plain", kernel="traverse_kernel", variant=variant,
+            shape=dict(bundles=int(args[0].shape[0]),
+                       level_caps=ptrav.level_caps(t_cfg),
+                       shared_bytes=shared_bytes,
+                       working_set="shared memory"
+                       if shared_bytes <= ptrav.MAX_SHARED_BYTES
+                       else "device-memory workspace",
+                       **shape),
+            limits=dict(abs_err_max=ABS_ERR_MAX), **res,
+        )
+        if not (res["hit_equal"] and res["codes_equal"]
+                and res["metrics_equal"] and res["miss_t_equal"]
+                and res["max_abs_err"] <= ABS_ERR_MAX):
+            fail(f"traverse_kernel ({variant}) disagrees with its plain "
+                 f"version: {res}")
+        return out_kk, m_kk, res
+
+    k4_args = traverse_launch_args(
+        lambda: render_gbuffer(scene, pcfg, device=dev)
+    )
+    k4_out, k4_m, k4_frame = traverse_check(
+        "frame 1080p d6", k4_args,
+        dict(width=WIDTH, height=HEIGHT, depth=DEPTH),
+    )
+    k4s_args = traverse_launch_args(lambda: progressive_step(
+        progressive_init(pcfg, seed=1, device=dev), scene, pcfg,
+        batch_size=SAMPLE_BATCH,
+    ))
+    k4s_out, k4s_m, k4_sobol = traverse_check(
+        "sobol bundles 1080p d6", k4s_args, dict(samples=SAMPLE_BATCH)
+    )
+    d7cfg = RenderConfig(
+        width=256, height=128, max_depth=7, tile_h=32, tile_w=32,
+        algorithm="pallas",
+    )
+    _, _, k4_dive = traverse_check(
+        "dive d7",
+        traverse_launch_args(lambda: render_gbuffer(dscene, d7cfg, device=dev)),
+        dict(width=256, height=128, depth=7),
+    )
+    ocfg = RenderConfig(
+        width=512, height=256, max_depth=4, tile_h=32, tile_w=32,
+        max_frontier=128, algorithm="pallas",
+    )
+    _, _, k4_over = traverse_check(
+        "overflow d4 max_frontier 128",
+        traverse_launch_args(lambda: render_gbuffer(scene, ocfg, device=dev)),
+        dict(width=512, height=256, depth=4, max_frontier=128),
+    )
+    if k4_out.shape != (n_tiles, 2, 8, 128) or k4s_out.shape[0] != 64:
+        fail("traversal kernel output has the wrong shape")
+    if k4_frame["overflow"] or k4_dive["deepest_level"] != 7:
+        fail(f"traversal cases off: {k4_frame}, {k4_dive}")
+    if k4_over["overflow"] <= 0:
+        fail("the constructed overflow case did not overflow")
+    # Frontiers past one block's shared memory: the same kernel body with
+    # its working set in a device-memory workspace. The frame does not
+    # overflow at 1,024, so a wider frontier must not change a bit of it.
+    # The Sobol bundles do overflow (1,024 pixels spread over some 32
+    # tiles: the pyramid around their bounding cone takes in much of the
+    # fractal) and still do at 16,384, where more nodes reach the deeper
+    # levels; the line reports what is dropped at either frontier.
+    wide_cfg = dataclasses.replace(pcfg, max_frontier=2048)
+    k4w_args = (*k4_args[:-1], wide_cfg)
+    k4w_out, k4w_m, k4_wide = traverse_check(
+        "frame 1080p d6, max_frontier 2048", k4w_args,
+        dict(width=WIDTH, height=HEIGHT, depth=DEPTH, max_frontier=2048),
+    )
+    if not (torch.equal(k4w_out, k4_out) and torch.equal(k4w_m, k4_m)):
+        fail("the workspace variant changed the frame's traversal")
+    _, _, k4_sobol_wide = traverse_check(
+        "sobol bundles 1080p d6, max_frontier 16384",
+        (*k4s_args[:-1], dataclasses.replace(pcfg, max_frontier=16384)),
+        dict(samples=SAMPLE_BATCH, max_frontier=16384),
+    )
+    if k4_sobol_wide["queue_nodes"] <= k4_sobol["queue_nodes"]:
+        fail("a wider frontier did not lengthen the Sobol bundles' queues")
+
     # ---- phase 3: the main path ------------------------------------
     def frame(i):
         camera = dataclasses.replace(
@@ -621,7 +786,7 @@ def main(argv) -> int:
 
     # ---- phase 3b: the frameless path -------------------------------
     counted = (trace_pairs_fused_soa, trace_pairs_fused_subset,
-               trace_pairs_pallas_soa)
+               trace_pairs_pallas_soa, ptrav.trace_tiles_pallas_soa)
 
     def reset_counts():
         for wrapper in counted:
@@ -659,7 +824,8 @@ def main(argv) -> int:
     frameless = dict(
         steps=GATE_STEPS, tiles_per_step=TILES_PER_STEP, seed=1,
         launches=dict(zip(("pairs_kernel", "pairs_kernel_subset",
-                           "pairs_kernel_dirs"), fl_counts)),
+                           "pairs_kernel_dirs", "traverse_kernel"),
+                          fl_counts)),
         covered=covered, tiles=n_tiles, overflow=int(st.overflow),
         prepare_overflow=int(prepared[3]),
         samples_traced=st.samples_traced, sample_lo=st.sample_lo,
@@ -671,7 +837,7 @@ def main(argv) -> int:
                     composite_err_max=COMPOSITE_ERR_MAX),
     )
     emit("frameless_path", **frameless)
-    if fl_counts != [1, GATE_STEPS, 0]:
+    if fl_counts != [1, GATE_STEPS, 0, 0]:
         fail(f"frameless launches {fl_counts}: expected one full-grid launch "
              f"per prepare and one subset launch per step")
     if covered != n_tiles or int(st.overflow) or int(prepared[3]):
@@ -717,9 +883,9 @@ def main(argv) -> int:
                     os.remove(os.path.join(tmp, f))
     emit("frameless_cli", **cli_runs)
     expected = dict(
-        progressive_tile=[1, GATE_STEPS, 0],
-        progressive_sample=[0, 0, 4],
-        animate_frameless=[0, 3 * 8, 0],  # 8 steps per camera step
+        progressive_tile=[1, GATE_STEPS, 0, 0],
+        progressive_sample=[0, 0, 4, 0],
+        animate_frameless=[0, 3 * 8, 0, 0],  # 8 steps per camera step
     )
     for name, run in cli_runs.items():
         if run["rc"] != 0 or min(run["png_bytes"]) < 10000:
@@ -732,6 +898,123 @@ def main(argv) -> int:
         fl_counts[1] + sum(r["launches"][1] for r in cli_runs.values()),
         sum(r["launches"][2] for r in cli_runs.values()),
     ]
+
+    # ---- phase 3c: the per-tile traversal path -----------------------
+    def pallas_frame(i):
+        camera = dataclasses.replace(
+            scene.camera, yaw=scene.camera.yaw + 1e-7 * i
+        )
+        return render_frame(
+            dataclasses.replace(scene, camera=camera), pcfg, device=dev
+        )
+
+    PALLAS_FRAMES, PALLAS_CLI_FRAMES = 2, 1
+    reset_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        png = os.path.join(tmp, "pallas.png")
+        rc = cli_main(size_args + [
+            "--algorithm", "pallas", "--frames", str(PALLAS_CLI_FRAMES),
+            "-o", png,
+        ])
+        png_bytes = os.path.getsize(png) if os.path.exists(png) else 0
+    p_frames = [pallas_frame(i) for i in range(PALLAS_FRAMES)]
+    p_counts = read_counts()
+    p_rendered = PALLAS_FRAMES + PALLAS_CLI_FRAMES + 1  # + the CLI's warm-up
+    if rc != 0 or png_bytes < 10000:
+        fail(f"CLI --algorithm pallas failed: rc={rc}, png of {png_bytes} bytes")
+    p_image, _ = p_frames[-1]
+    p_gb = render_gbuffer(scene, pcfg, device=dev)
+    pm = p_gb.metrics
+    cross_hit = float((p_gb.hit == gb_kernel.hit).float().mean())
+    cross_both = p_gb.hit & gb_kernel.hit
+    cross_t = float(torch.isclose(
+        p_gb.min_t, gb_kernel.min_t, rtol=1e-4, atol=1e-4
+    )[cross_both].float().mean())
+    leaf_radius = 3.0 ** -int(pm.max_depth_reached)
+    cross_leaf = float(
+        ((p_gb.min_t - gb_kernel.min_t).abs() <= leaf_radius)[cross_both]
+        .float().mean()
+    )
+    pallas_path = dict(
+        frames=p_rendered,
+        launches=dict(zip(("pairs_kernel", "pairs_kernel_subset",
+                           "pairs_kernel_dirs", "traverse_kernel"),
+                          p_counts)),
+        cli_png_bytes=png_bytes, overflow=int(pm.overflow),
+        max_depth_reached=int(pm.max_depth_reached),
+        binned_max_depth_reached=int(gb_kernel.metrics.max_depth_reached),
+        nodes_visited=int(pm.nodes_visited),
+        closest_distance=float(pm.closest_distance),
+        hit_fraction=float(p_gb.hit.float().mean()),
+        hit_agree_with_binned=cross_hit, min_t_close_to_binned=cross_t,
+        min_t_within_leaf_radius=cross_leaf, leaf_radius=leaf_radius,
+        image_shape=list(p_image.shape), image_mean=float(p_image.mean()),
+        limits=dict(hit_agree_min=CROSS_HIT_MIN,
+                    min_t_close_min=CROSS_T_CLOSE_MIN,
+                    min_t_within_leaf_radius_min=CROSS_T_LEAF_MIN),
+    )
+    emit("pallas_path", **pallas_path)
+    if p_counts != [0, 0, 0, p_rendered]:
+        fail(f"pallas frames launched {p_counts}: expected one traversal "
+             f"launch per frame ({p_rendered}) and no pair-kernel launch")
+    if int(pm.overflow) != 0 or int(pm.max_depth_reached) != int(
+            gb_kernel.metrics.max_depth_reached):
+        fail(f"pallas frame properties off: {pallas_path}")
+    if not (p_image.is_cuda and tuple(p_image.shape) == (HEIGHT, WIDTH, 3)
+            and bool(torch.isfinite(p_image).all())):
+        fail("the pallas image is not a finite [1080, 1920, 3] tensor on the card")
+    if (cross_hit < CROSS_HIT_MIN or cross_t < CROSS_T_CLOSE_MIN
+            or cross_leaf < CROSS_T_LEAF_MIN):
+        fail(f"the pallas frame diverges from the binned frame: {pallas_path}")
+
+    # The sample unit on the per-tile path, through the CLI.
+    PALLAS_STEPS = 4
+    reset_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        png = os.path.join(tmp, "samples.png")
+        rc = cli_main(size_args + [
+            "--algorithm", "pallas", "--progressive", str(PALLAS_STEPS),
+            "--progressive-unit", "sample", "--batch", str(SAMPLE_BATCH),
+            "-o", png,
+        ])
+        png_bytes = os.path.getsize(png) if os.path.exists(png) else 0
+    ps_counts = read_counts()
+    emit("pallas_cli_sample", rc=rc, launches=ps_counts, png_bytes=png_bytes)
+    if rc != 0 or png_bytes < 10000 or ps_counts != [0, 0, 0, PALLAS_STEPS]:
+        fail(f"CLI pallas sample unit: rc={rc}, launches {ps_counts}")
+    k4_path_launches = p_counts[3] + ps_counts[3]
+
+    # The `fast` fallback once, at a reduced frame, against `pallas`.
+    fcfg = RenderConfig(
+        width=512, height=256, max_depth=4, tile_h=32, tile_w=32,
+        algorithm="fast",
+    )
+    reset_counts()
+    t0 = time.perf_counter()
+    f_gb = render_gbuffer(scene, fcfg, device=dev)
+    torch.cuda.synchronize()
+    fast_s = time.perf_counter() - t0
+    f_counts = read_counts()
+    fp_gb = render_gbuffer(
+        scene, dataclasses.replace(fcfg, algorithm="pallas"), device=dev
+    )
+    fast_hit = float((f_gb.hit == fp_gb.hit).float().mean())
+    fast_both = f_gb.hit & fp_gb.hit
+    fast_t = float(torch.isclose(
+        f_gb.min_t, fp_gb.min_t, rtol=1e-4, atol=1e-4
+    )[fast_both].float().mean())
+    emit("fast_path", width=512, height=256, depth=4, seconds=fast_s,
+         launches=f_counts, overflow=int(f_gb.metrics.overflow),
+         pallas_overflow=int(fp_gb.metrics.overflow),
+         max_depth_reached=int(f_gb.metrics.max_depth_reached),
+         hit_fraction=float(f_gb.hit.float().mean()),
+         hit_agree_with_pallas=fast_hit, min_t_close_to_pallas=fast_t,
+         limits=dict(hit_agree_min=CROSS_HIT_MIN))
+    if f_counts != [0, 0, 0, 0]:
+        fail(f"the fast path launched a kernel: {f_counts}")
+    if fast_hit < CROSS_HIT_MIN or int(f_gb.metrics.max_depth_reached) != int(
+            fp_gb.metrics.max_depth_reached):
+        fail(f"fast diverges from pallas: {fast_hit}")
 
     # ---- phase 4: times --------------------------------------------
     from sphereflake_tpu_torch.camera import corner_rays, tile_frustum_planes
@@ -1044,11 +1327,156 @@ def main(argv) -> int:
         peak_memory_mb=torch.cuda.max_memory_allocated() / 2**20,
     )
 
+    # ---- phase 4c: times of the per-tile traversal path ---------------
+    from sphereflake_tpu_torch.ops.pallas_traversal import resolve_codes_soa
+    from sphereflake_tpu_torch.render import (
+        _soa_raygen,
+        _soa_shade,
+        _untile,
+    )
+
+    k4_dirs, k4_planes, k4_root, k4_templates, k4_fractal, _ = k4_args
+    with torch.no_grad():
+        pallas_frame_ms = event_ms(
+            torch, lambda: pallas_frame(next(counter)), 5
+        )
+        pallas_gbuffer_ms = event_ms(
+            torch, lambda: render_gbuffer(scene, pcfg, device=dev), 5
+        )
+        pallas_prof = profile_device(
+            torch, lambda: pallas_frame(next(counter)), 3
+        )
+
+        def raygen():
+            tiled = _soa_raygen(scene, pcfg)
+            return tiled, torch.stack(
+                [t.reshape(n_tiles, 8, 128) for t in tiled], dim=1
+            )
+
+        tiled, _ = raygen()
+        level_tab, expand_tab = ptrav._level_tables(
+            k4_templates, k4_fractal, pcfg
+        )
+        enqueue_args = (k4_dirs, k4_planes, k4_root, expand_tab, level_tab, pcfg)
+        ks_level_tab, ks_expand = ptrav._level_tables(
+            k4s_args[3], k4s_args[4], pcfg
+        )
+        dxf, dyf, dzf = (t.reshape(-1) for t in tiled)
+        codes_flat = k4_out[:, 1].reshape(-1)
+        resolved = resolve_codes_soa(
+            dxf, dyf, dzf, codes_flat, k4_root, k4_templates, k4_fractal, pcfg
+        )
+        shaded = _soa_shade(dxf, dyf, dzf, *resolved)
+
+        def untile_planes():
+            img = lambda flat: _untile(flat.reshape(n_tiles, 1024), pcfg)
+            return (torch.stack([img(c) for c in shaded[:3]], dim=-1),
+                    torch.stack([img(c) for c in shaded[3:]], dim=-1),
+                    img(resolved[0]), img(resolved[4]))
+
+        pallas_split = dict(
+            raygen=event_ms(torch, raygen, 5),
+            planes=event_ms(torch, lambda: tile_frustum_planes(
+                scene.camera, WIDTH, HEIGHT, 32, 32,
+                block_h=pcfg.padded_height, block_w=pcfg.padded_width,
+            ), 5),
+            kernel_wrapper=event_ms(
+                torch, lambda: ptrav.trace_tiles_pallas_soa(*k4_args), 20
+            ),
+            resolve=event_ms(torch, lambda: resolve_codes_soa(
+                dxf, dyf, dzf, codes_flat, k4_root, k4_templates, k4_fractal,
+                pcfg,
+            ), 5),
+            shade=event_ms(
+                torch, lambda: _soa_shade(dxf, dyf, dzf, *resolved), 5
+            ),
+            untile=event_ms(torch, untile_planes, 5),
+        )
+        # The kernel alone, its level tables prepared (the wrapper's own
+        # plain ops are host-bound launches).
+        k4_ms = event_ms(
+            torch, lambda: ptrav._enqueue_traverse_kernel(*enqueue_args), 50
+        )
+        pallas_split["kernel"] = k4_ms
+        k4_sobol_ms = event_ms(
+            torch, lambda: ptrav._enqueue_traverse_kernel(
+                k4s_args[0], k4s_args[1], k4s_args[2], ks_expand,
+                ks_level_tab, pcfg,
+            ), 50,
+        )
+        k4_workspace_ms = event_ms(
+            torch, lambda: ptrav._enqueue_traverse_kernel(
+                *enqueue_args[:-1], wide_cfg
+            ), 20,
+        )
+        k4_plain_ms = event_ms(
+            torch, lambda: ptrav.trace_tiles_pallas_soa_plain(
+                *k4_args[:-1], dataclasses.replace(pcfg, tile_batch=128)
+            ), 1,
+        )
+        pstate = {"st": progressive_init(pcfg, seed=1, device=dev)}
+
+        def pallas_sample_step():
+            pstate["st"] = progressive_step(
+                pstate["st"], scene, pcfg, batch_size=SAMPLE_BATCH
+            )
+
+        for _ in range(2):
+            pallas_sample_step()
+        pallas_sample_step_ms = event_ms(torch, pallas_sample_step, 5)
+    if pallas_prof is not None:
+        pallas_prof["idle_share"] = 1.0 - pallas_prof["busy_ms"] / pallas_frame_ms
+    emit("device_profile", what="render_frame 1080p d6, algorithm=pallas",
+         **(pallas_prof or {
+             "busy_ms": None, "note": "torch.profiler reported no device time"
+         }))
+
+    def traverse_bound(args, out, m):
+        """Bound of one traversal launch from its own metrics: every ray
+        tests its bundle's whole queue; the expansion examines 9 children
+        of every queued node above the last level."""
+        col = m[:, 0].long()
+        qlen = int(col[:, 0].sum())
+        parents = qlen - int(col[:, 3].sum())
+        moved = (args[0].numel() + args[1].numel() + out.numel()
+                 + m.numel()) * 4
+        operations = (qlen * 1024 * OPS_PER_TRAVERSE_TEST
+                      + 9 * parents * OPS_PER_CHILD)
+        return (*bound(moved, operations), moved, operations, qlen)
+
+    (k4_bound_ms, k4_bound_by, k4_bytes_ms, k4_ops_ms, k4_bytes, k4_ops,
+     k4_qlen) = traverse_bound(k4_args, k4_out, k4_m)
+    (k4s_bound_ms, k4s_bound_by, _, _, k4s_bytes, k4s_ops,
+     k4s_qlen) = traverse_bound(k4s_args, k4s_out, k4s_m)
+    emit(
+        "pallas_times", card=card, width=WIDTH, height=HEIGHT, depth=DEPTH,
+        max_frontier=pcfg.max_frontier, pallas_frame_ms=pallas_frame_ms,
+        pallas_gbuffer_ms=pallas_gbuffer_ms,
+        rays_per_second=WIDTH * HEIGHT / (pallas_frame_ms * 1e-3),
+        pallas_split_ms=pallas_split,
+        traverse_kernel=dict(
+            ms=k4_ms, wrapper_ms=pallas_split["kernel_wrapper"],
+            workspace_variant_ms=k4_workspace_ms, plain_ms=k4_plain_ms, bound_ms=k4_bound_ms,
+            bound_by=k4_bound_by, bytes_ms=k4_bytes_ms, ops_ms=k4_ops_ms,
+            bytes_moved=k4_bytes, operations=k4_ops, queue_nodes=k4_qlen,
+            longest_queue=k4_frame["longest_queue"], bundles=n_tiles,
+        ),
+        pallas_sample_step_ms=pallas_sample_step_ms,
+        samples_per_second=SAMPLE_BATCH / (pallas_sample_step_ms * 1e-3),
+        traverse_kernel_sobol=dict(
+            ms=k4_sobol_ms, bound_ms=k4s_bound_ms, bound_by=k4s_bound_by,
+            bytes_moved=k4s_bytes, operations=k4s_ops, queue_nodes=k4s_qlen,
+            longest_queue=k4_sobol["longest_queue"], bundles=64,
+        ),
+        peak_memory_mb=torch.cuda.max_memory_allocated() / 2**20,
+    )
+
     # ---- phase 5: the kernels line, the card, the verdict ----------
-    # The three launch modes of one source. `launches` sums the main
-    # paths' runs (each counted from 0: frames, the 24-step frameless
-    # run, the three CLI runs); no single PyTorch call computes any of
-    # them, so `library_ms` is null.
+    # The three launch modes of one source, and the traversal kernel.
+    # `launches` sums the main paths' runs (each counted from 0: frames,
+    # the 24-step frameless run, the three frameless CLI runs; pallas
+    # frames and the CLI's pallas sample unit); no single PyTorch call
+    # computes any of them, so `library_ms` is null.
     source = "sphereflake_tpu_torch/csrc/pairs_kernel.cu"
     print(json.dumps({"kernels": [
         {
@@ -1077,7 +1505,19 @@ def main(argv) -> int:
             "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound_ms,
             "bound_by": k3_bound_by, "library_ms": None,
         },
+        {
+            "name": "traverse_kernel", "route": "cuda",
+            "source": "sphereflake_tpu_torch/csrc/traverse_kernel.cu",
+            "replaces": "sphereflake_tpu/ops/pallas_traversal.py:416",
+            "launches": k4_path_launches,
+            "max_abs_err": max(r["max_abs_err"] for r in (
+                k4_frame, k4_sobol, k4_dive, k4_over, k4_wide,
+                k4_sobol_wide)),
+            "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound_ms,
+            "bound_by": k4_bound_by, "library_ms": None,
+        },
     ]}), flush=True)
+    emit("total", seconds=round(time.perf_counter() - t_script, 1))
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

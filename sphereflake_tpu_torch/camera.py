@@ -119,6 +119,44 @@ def tile_frustum_planes(
     return n * torch.where(s == 0, torch.ones_like(s), s)
 
 
+def bundle_frustum_planes(dirs):
+    """[B, 4, 3] conservative frustum planes for arbitrary unit-ray
+    bundles `dirs` [B, R, 3] (or [4, 3] for one bundle [R, 3]): a
+    4-plane pyramid circumscribing each bundle's bounding cone. Falls
+    back to all-pass planes (zeros) for bundles wider than a
+    hemisphere-ish cone, where no pyramid exists."""
+    if dirs.dim() == 2:
+        return bundle_frustum_planes(dirs[None])[0]
+    axis = torch.sum(dirs, dim=1)  # [B, 3]
+    axis = axis / torch.sqrt(
+        torch.clamp_min(torch.sum(axis * axis, dim=-1, keepdim=True), 1e-20)
+    )
+    dots = (
+        dirs[..., 0] * axis[:, None, 0]
+        + dirs[..., 1] * axis[:, None, 1]
+        + dirs[..., 2] * axis[:, None, 2]
+    )
+    cos_t = torch.amin(dots, dim=1)[:, None]  # [B, 1]
+    sin_t = torch.sqrt(torch.clamp_min(1.0 - cos_t * cos_t, 0.0))
+    # Orthobasis around the axis.
+    ex = axis.new_tensor([1.0, 0.0, 0.0]).expand_as(axis)
+    ey = axis.new_tensor([0.0, 1.0, 0.0]).expand_as(axis)
+    alt = torch.where(torch.abs(axis[:, :1]) < 0.9, ex, ey)
+    u = torch.linalg.cross(axis, alt, dim=-1)
+    u = u / torch.sqrt(
+        torch.clamp_min(torch.sum(u * u, dim=-1, keepdim=True), 1e-20)
+    )
+    v = torch.linalg.cross(axis, u, dim=-1)
+    # Plane normal tangent to the cone opposite lateral direction e:
+    # n = sin(t)*axis - cos(t)*e; dot(n, x) >= 0 for all cone dirs.
+    planes = torch.stack(
+        [sin_t * axis - cos_t * e for e in (u, -u, v, -v)], dim=1
+    )
+    return torch.where(
+        (cos_t > 0.05)[:, :, None], planes, torch.zeros_like(planes)
+    )
+
+
 def pixel_grid(width: int, height: int, device="cuda"):
     """Integer pixel-coordinate grids xs, ys of shape [height, width].
 

@@ -6,10 +6,14 @@ depth/LOD knobs) for the modes ported so far:
 - one full frame (or `--frames N` timed frames) to a PNG, optionally
   the G-buffer to an NPZ;
 - `--progressive STEPS`: frameless Sobol accumulation with a static
-  camera, by whole tiles (`--progressive-unit tile`, the default) or by
-  single pixels (`sample`);
+  camera, by whole tiles (`--progressive-unit tile`, the default;
+  binned only) or by single pixels (`sample`);
 - `--animate FRAMES --frameless`: the camera moves (orbit or approach)
-  while one buffer keeps accumulating.
+  while one buffer keeps accumulating (binned only).
+
+`--algorithm` picks the traversal: `binned` (what `auto` means: the
+port's default device is the GPU), `pallas` (the per-tile traversal
+kernel) or `fast` (plain ops).
 
 Headless: the C++ app's 1 Hz title-bar metrics line
 (`main.cpp:271-294`) becomes a printed metrics line. Checkpoints
@@ -43,17 +47,25 @@ def build_parser() -> argparse.ArgumentParser:
                    help="LOD factor (C++ app: 70 AVX / 60 SSE)")
     p.add_argument(
         "--algorithm",
-        choices=("auto", "binned"),
+        choices=("auto", "binned", "pallas", "fast"),
         default="auto",
-        help="traversal implementation; auto = binned (global expansion "
-        "+ screen binning + the fused CUDA ray kernel), the only one "
-        "ported so far",
+        help="traversal implementation; auto = binned, the production "
+        "path (global expansion + screen binning + the fused CUDA ray "
+        "kernel); pallas = the per-tile traversal kernel; fast = the "
+        "plain-op cone-culled traversal",
     )
     p.add_argument("--tile", type=str, default=None,
-                   help="tile HxW (default: 32x32)")
+                   help="tile HxW (default: 32x32 for binned/pallas, "
+                   "64x128 otherwise)")
+    p.add_argument("--max-frontier", type=int, default=1024,
+                   help="per-tile paths: cap on live spheres per tile and "
+                   "level (doubled on overflow)")
     p.add_argument("--global-cap", type=int, default=None,
-                   help="live-node cap per fractal level (default: "
-                   "RenderConfig's 9*8192; doubled on overflow)")
+                   help="binned path: live-node cap per fractal level "
+                   "(default: RenderConfig's 9*8192; doubled on overflow)")
+    p.add_argument("--tile-batch", type=int, default=16,
+                   help="per-tile paths: tiles traced concurrently by the "
+                   "plain-op traversal")
     p.add_argument("--output", "-o", type=str, default="sphereflake.png")
     p.add_argument("--gbuffer", type=str, default=None,
                    help="also save G-buffer NPZ")
@@ -192,15 +204,23 @@ def _run_progressive(args, scene, cfg, device, sync) -> int:
         write_png,
     )
 
-    use_tiles = args.progressive_unit == "tile"
+    binned = cfg.algorithm == "binned"
+    use_tiles = args.progressive_unit == "tile" and binned
+    if args.progressive_unit == "tile" and not binned:
+        print(
+            "note: the tile-granular frameless mode needs the binned "
+            f"algorithm; --algorithm {cfg.algorithm} accumulates by "
+            "single pixels (--progressive-unit sample)",
+            file=sys.stderr,
+        )
     if args.snapshot_every and not use_tiles:
         print(
             "note: --snapshot-every only runs in the tile-granular "
-            "frameless mode (--progressive-unit tile); no in-flight "
-            "snapshots will be written",
+            "frameless mode (binned algorithm, --progressive-unit "
+            "tile); no in-flight snapshots will be written",
             file=sys.stderr,
         )
-    if not use_tiles and args.batch % 1024:
+    if not use_tiles and cfg.algorithm != "fast" and args.batch % 1024:
         print(
             f"error: --progressive-unit sample needs --batch to be a "
             f"multiple of 1024, got {args.batch}", file=sys.stderr,
@@ -219,7 +239,8 @@ def _run_progressive(args, scene, cfg, device, sync) -> int:
         if (args.no_trim_prepared or not use_tiles)
         else progressive_prepare_trimmed
     )
-    while True:
+    prepared = None
+    while binned:
         prepared = prep_fn(scene, cfg, device=device)
         dropped = int(prepared[3])
         if not dropped:
@@ -312,7 +333,7 @@ def _run_progressive(args, scene, cfg, device, sync) -> int:
             print(
                 f"warning: {int(state.overflow)} dropped nodes "
                 "accumulated across steps — the image is missing "
-                "geometry (raise --global-cap)",
+                "geometry (raise --max-frontier / --global-cap)",
                 file=sys.stderr,
             )
     if args.mode == "composite":
@@ -377,7 +398,20 @@ def main(argv=None) -> int:
         print(f"error: {e}", file=sys.stderr)
         return 2
 
-    tile_h, tile_w = (int(v) for v in (args.tile or "32x32").split("x"))
+    # auto = binned: the one executable runs its production path (the
+    # port's default device is the GPU).
+    algorithm = "binned" if args.algorithm == "auto" else args.algorithm
+    tile = args.tile or (
+        "32x32" if algorithm in ("pallas", "binned") else "64x128"
+    )
+    tile_h, tile_w = (int(v) for v in tile.split("x"))
+    if algorithm == "pallas" and args.depth > 7:
+        # `trace_tiles_pallas_soa`'s bound, reported before any work.
+        print(
+            "error: pallas path supports max_depth <= 7 (f32 path-code "
+            "exactness); use an XLA algorithm for deeper", file=sys.stderr,
+        )
+        return 2
     try:
         cfg = RenderConfig(
             width=args.width,
@@ -386,7 +420,9 @@ def main(argv=None) -> int:
             lod_factor=args.lod,
             tile_h=tile_h,
             tile_w=tile_w,
-            algorithm="binned",  # auto and binned both
+            max_frontier=args.max_frontier,
+            tile_batch=args.tile_batch,
+            algorithm=algorithm,
             **(
                 {"global_cap": args.global_cap}
                 if args.global_cap is not None
@@ -432,6 +468,10 @@ def main(argv=None) -> int:
                 "(ROADMAP.md M9)", file=sys.stderr,
             )
             return 2
+        if cfg.algorithm != "binned":
+            print("error: --frameless needs the binned path "
+                  "(--algorithm binned)", file=sys.stderr)
+            return 2
         return _run_frameless_animate(args, scene, cfg, device, sync)
     if args.progressive:
         return _run_progressive(args, scene, cfg, device, sync)
@@ -460,11 +500,14 @@ def main(argv=None) -> int:
     # recursion visits every LOD-passing node, `Sphereflake.h:165-172`).
     retries = 0
     while int(gb.metrics.overflow) and retries < 6:
+        # Grow global_cap (binned) / max_frontier (per-tile), then fall
+        # back to bands.
         cfg = grow_capacity(cfg)
         print(
             f"capacity overflow ({int(gb.metrics.overflow)} nodes "
             f"dropped); retrying with global_cap={cfg.global_cap} "
-            f"bands={cfg.effective_band_rows}",
+            f"bands={cfg.effective_band_rows} "
+            f"max_frontier={cfg.max_frontier}",
             file=sys.stderr,
         )
         image, gb = one_frame(0)
@@ -482,7 +525,7 @@ def main(argv=None) -> int:
     )
     if int(m.overflow):
         print(f"warning: capacity overflow dropped {int(m.overflow)} nodes "
-              f"(raise --global-cap)", file=sys.stderr)
+              f"(raise --global-cap / --max-frontier)", file=sys.stderr)
 
     if args.mode == "composite":
         out = image

@@ -11,9 +11,10 @@ Same split as the reference package's `config.py`:
   leaf names. Every leaf is a tensor on one device, so a later slice can
   mark leaves ``requires_grad`` and fit them.
 
-Only ``algorithm="binned"`` is rendered by the port so far; the other
-algorithm names construct (the field defaults are the reference's) but
-`render.render_gbuffer` raises `NotImplementedError` for them.
+The port renders ``algorithm="binned"``, ``"pallas"`` and ``"fast"``;
+``"strict"`` and ``"loose"`` construct (the field defaults are the
+reference's) but `render.render_gbuffer` raises `NotImplementedError`
+for them.
 """
 
 from __future__ import annotations
@@ -172,9 +173,11 @@ class RenderConfig:
     max_frontier: int = 1024  # per-tile cap on live spheres per level
     tile_batch: int = 16  # tiles traced concurrently (per-tile paths)
     # "binned": global expansion + screen binning + the fused kernel
-    #           (the only algorithm the port renders so far).
-    # "pallas" / "fast" / "strict" / "loose": the reference's other
-    #           traversals; they construct but do not render yet.
+    #           (production).
+    # "pallas": the per-tile traversal kernel (one block per tile).
+    # "fast":   plain-op levelwise traversal with tile-cone culling.
+    # "strict" / "loose": the reference's parity traversals; they
+    #           construct but do not render yet.
     algorithm: str = "fast"
     strict_lod: bool = True
     # Binned path: render the frame in horizontal bands of this many

@@ -19,6 +19,8 @@ import os
 import shutil
 import subprocess
 
+import torch
+
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 
@@ -30,7 +32,10 @@ NVCC_FLAGS = (
 )
 
 # Kernel name -> source file under csrc/.
-SOURCES = {"pairs_kernel": "pairs_kernel.cu"}
+SOURCES = {
+    "pairs_kernel": "pairs_kernel.cu",
+    "traverse_kernel": "traverse_kernel.cu",
+}
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -106,3 +111,58 @@ def load(name: str) -> ctypes.CDLL:
     if name not in _libs:
         _libs[name] = ctypes.CDLL(build([name])[name])
     return _libs[name]
+
+
+def entry_point(lib: str, name: str, n_ptrs: int, n_ints: int):
+    """C entry point `name` of the built library `lib`, taking `n_ptrs`
+    device pointers, `n_ints` ints and the stream; it returns
+    cudaGetLastError()."""
+    fn = getattr(load(lib), name)
+    fn.argtypes = (
+        [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+        + [ctypes.c_void_p]
+    )
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def enqueue(fn, what: str, tensors, ints, dev):
+    """Launch on the current stream of `dev`; raise if the launch was
+    refused. The launch is asynchronous and ctypes keeps no reference
+    to the tensors: that is safe because the launch goes to the current
+    stream, and the caching allocator reuses a freed block only in
+    stream order."""
+    with torch.cuda.device(dev):
+        err = fn(
+            *(x.data_ptr() for x in tensors), *ints,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"{what} launch failed: cudaGetLastError() = {err}"
+        )
+
+
+def check_tensors(specs, anchor, anchor_name: str):
+    """Raise on anything a kernel does not take. `specs` rows are
+    (name, tensor, dtype, shape with None for any size); every tensor
+    must lie on the device of `anchor` (called `anchor_name` in the
+    message) and be contiguous."""
+    for name, x, _, _ in specs:
+        if not isinstance(x, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor, got {type(x)}")
+    for name, x, dtype, shape in specs:
+        if x.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
+        if x.device != anchor.device:
+            raise ValueError(
+                f"{name} lies on {x.device}, {anchor_name} on {anchor.device}"
+            )
+        if x.dim() != len(shape) or any(
+            s is not None and s != d for s, d in zip(shape, x.shape)
+        ):
+            raise ValueError(
+                f"{name} must have shape {shape}, got {tuple(x.shape)}"
+            )
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")

@@ -33,11 +33,10 @@ return reads a value back to the host.
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
+from sphereflake_tpu_torch import kernels
 from sphereflake_tpu_torch.config import FractalParams, RenderConfig
 
 _BIG = 3.0e38  # rounds to np.float32(3.0e38) in every f32 tensor op
@@ -629,30 +628,6 @@ def trace_pairs_pallas_soa_plain(dirs_k, pairs, starts, lens,
     return out, _length_metrics(lens)
 
 
-def _check_tensors(specs, anchor):
-    """Raise on anything a kernel does not take. `specs` rows are
-    (name, tensor, dtype, shape with None for any size); every tensor
-    must lie on `anchor`'s device and be contiguous."""
-    for name, x, _, _ in specs:
-        if not isinstance(x, torch.Tensor):
-            raise TypeError(f"{name} must be a torch.Tensor, got {type(x)}")
-    for name, x, dtype, shape in specs:
-        if x.dtype != dtype:
-            raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
-        if x.device != anchor.device:
-            raise ValueError(
-                f"{name} lies on {x.device}, pairs on {anchor.device}"
-            )
-        if x.dim() != len(shape) or any(
-            s is not None and s != d for s, d in zip(shape, x.shape)
-        ):
-            raise ValueError(
-                f"{name} must have shape {shape}, got {tuple(x.shape)}"
-            )
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-
-
 def _check_kernel_inputs(cam, pairs, starts, lens, cfg: RenderConfig,
                          tile_ids=None):
     """Raise on anything the fused (raygen) modes do not take."""
@@ -672,51 +647,20 @@ def _check_kernel_inputs(cam, pairs, starts, lens, cfg: RenderConfig,
     ]
     if tile_ids is not None:
         specs.append(("tile_ids", tile_ids, torch.int32, (None,)))
-    _check_tensors(specs, pairs)
-
-
-def _kernel_fn(name: str, n_ptrs: int, n_ints: int):
-    """Entry point `name` of the built pairs-kernel library, taking
-    `n_ptrs` device pointers, `n_ints` ints and the stream."""
-    from sphereflake_tpu_torch import kernels
-
-    fn = getattr(kernels.load("pairs_kernel"), name)
-    fn.argtypes = (
-        [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
-        + [ctypes.c_void_p]
-    )
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _enqueue(fn, name: str, tensors, ints, dev):
-    """Launch on the current stream of `dev`; raise if the launch was
-    refused. The launch is asynchronous and ctypes keeps no reference
-    to the tensors: that is safe because the launch goes to the current
-    stream, and the caching allocator reuses a freed block only in
-    stream order."""
-    with torch.cuda.device(dev):
-        err = fn(
-            *(x.data_ptr() for x in tensors), *ints,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"pairs_kernel launch ({name}) failed: cudaGetLastError() = {err}"
-        )
+    kernels.check_tensors(specs, pairs, "pairs")
 
 
 def _launch_pairs_kernel(cam, pairs, starts, lens, cfg: RenderConfig):
     """Enqueue the full-grid mode of `csrc/pairs_kernel.cu`."""
-    fn = _kernel_fn("sf_trace_pairs_fused", 6, 6)
+    fn = kernels.entry_point("pairs_kernel", "sf_trace_pairs_fused", 6, 6)
     T = cfg.tiles_y * cfg.tiles_x
     deep = cfg.max_depth >= 7
     dev = pairs.device
     out = torch.empty((T, 9 if deep else 8, 8, 128), dtype=torch.float32,
                       device=dev)
     metrics = torch.empty((T, 1, 4), dtype=torch.int32, device=dev)
-    _enqueue(
-        fn, "full", (cam, pairs, starts, lens, out, metrics),
+    kernels.enqueue(
+        fn, "pairs_kernel (full)", (cam, pairs, starts, lens, out, metrics),
         (T, pairs.shape[1], cfg.tile_w.bit_length() - 1, cfg.tile_h,
          cfg.tiles_x, int(deep)),
         dev,
@@ -764,9 +708,12 @@ def _launch_subset_kernel(cam, pairs, starts, lens, tile_ids,
     metrics = torch.empty((K, 1, 4), dtype=torch.int32, device=dev)
     if K == 0:
         return out, metrics
-    fn = _kernel_fn("sf_trace_pairs_fused_subset", 7, 7)
-    _enqueue(
-        fn, "subset", (cam, pairs, starts, lens, tile_ids, out, metrics),
+    fn = kernels.entry_point(
+        "pairs_kernel", "sf_trace_pairs_fused_subset", 7, 7
+    )
+    kernels.enqueue(
+        fn, "pairs_kernel (subset)",
+        (cam, pairs, starts, lens, tile_ids, out, metrics),
         (K, pairs.shape[1], cfg.tile_w.bit_length() - 1, cfg.tile_h,
          cfg.tiles_x, int(deep), int(shade_only)),
         dev,
@@ -822,9 +769,10 @@ def _launch_dirs_kernel(dirs_k, pairs, starts, lens, cfg: RenderConfig):
     metrics = torch.empty((B, 1, 4), dtype=torch.int32, device=dev)
     if B == 0:
         return out, metrics
-    fn = _kernel_fn("sf_trace_pairs_dirs", 6, 3)
-    _enqueue(
-        fn, "dirs", (dirs_k, pairs, starts, lens, out, metrics),
+    fn = kernels.entry_point("pairs_kernel", "sf_trace_pairs_dirs", 6, 3)
+    kernels.enqueue(
+        fn, "pairs_kernel (dirs)",
+        (dirs_k, pairs, starts, lens, out, metrics),
         (B, pairs.shape[1], int(deep)), dev,
     )
     trace_pairs_pallas_soa.launches += 1
@@ -852,14 +800,14 @@ def trace_pairs_pallas_soa(
     launch. `trace_pairs_pallas_soa.launches` counts kernel launches."""
     n_rows = 8 if cfg.max_depth >= 7 else 7
     B = dirs_k.shape[0] if isinstance(dirs_k, torch.Tensor) else None
-    _check_tensors(
+    kernels.check_tensors(
         [
             ("dirs_k", dirs_k, torch.float32, (None, 3, 8, 128)),
             ("pairs", pairs, torch.float32, (n_rows, None)),
             ("starts", starts, torch.int32, (B,)),
             ("lens", lens, torch.int32, (B,)),
         ],
-        pairs,
+        pairs, "pairs",
     )
     if pairs.device.type == "cuda":
         return _launch_dirs_kernel(dirs_k, pairs, starts, lens, cfg)

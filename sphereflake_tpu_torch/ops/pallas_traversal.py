@@ -1,21 +1,434 @@
-"""Helpers shared with the per-tile traversal path (plain torch).
+"""The per-tile traversal kernel and the path-code resolve.
 
-Counterpart of the reference package's `ops/pallas_traversal.py`:
-`depth_reached_soa` and the path-code resolve (`resolve_codes_soa`,
-`resolve_codes`), all plain ops in the reference too. The per-tile
-traversal kernel itself is not ported yet (ROADMAP.md queue 2, K4).
+Counterpart of the reference package's `ops/pallas_traversal.py`. One
+kernel launch traces every 1024-ray bundle (a screen tile, or a bundle
+of tile-sorted Sobol pixels) on its own: the bundle walks the 9-ary
+sphere tree level by level, culls each node's children against its own
+4 frustum planes and the conservative LOD bound, keeps the survivors in
+order in a per-level queue, and then every ray tests exactly the queued
+nodes. Semantics are those of `ops/traversal.trace_tile_fast` with the
+bundle as the packet: per-node bounding(2r) + LOD culls decide which
+spheres are *candidates*; per-ray bounding/LOD/self tests decide hits.
+
+- `trace_tiles_pallas_soa` is the wrapper. For CUDA tensors it launches
+  the hand-written kernel `csrc/traverse_kernel.cu` (or raises); for CPU
+  tensors it runs `trace_tiles_pallas_soa_plain`, the same function in
+  eager torch ops. `trace_tiles_pallas` is the AoS-directions wrapper.
+  The names are the reference package's (its kernel is written in
+  Pallas).
+- The hit payload is the winner's base-9 path code (sentinel-prefixed:
+  root = 1, child = 9 * code + j), riding an f32 lane: `max_depth <= 7`
+  here. `resolve_codes[_soa]` re-derives the winning sphere's frame and
+  the analytic hit distance from the code in plain ops, which is also
+  where gradients flow; `depth_reached_soa` reads the deepest level out
+  of a batch of codes.
+
+**Level caps are semantics** (`level_caps`): level l holds at most
+`min(round_up_128(9**l), max(128, max_frontier // 128 * 128))` nodes;
+survivors past the cap are dropped in order and counted as overflow.
+
+**Where the kernel keeps a bundle's working set.** Both frontier panels
+and the whole queue of a bundle live in the shared memory of one block
+(`kernel_shared_bytes`) whenever they fit the 232,448 bytes a block may
+use: at the default `max_frontier=1024` and depth 7 they take 182,784.
+A configuration whose caps need more (`max_frontier=2048` at depth >= 5,
+the next rung of the CLI's capacity ladder) runs the same kernel body
+with the working set in a workspace in device memory that the wrapper
+allocates: one region per block, one block per multiprocessor, the blocks
+striding over the bundles. The choice follows from the configuration
+alone; the level caps, the arithmetic and the order are the same, so
+the results are too. Nothing is cut silently and the plain version
+never stands in for the kernel.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
+from sphereflake_tpu_torch import kernels
 from sphereflake_tpu_torch.config import FractalParams, RenderConfig
 from sphereflake_tpu_torch.ops.intersect import safe_sqrt
 
 _BIG = 3.0e38
 
+_LANES = 128  # parent-chunk width; a chunk has 9 * 128 child lanes
 TILE_RAYS = 1024  # rays per kernel bundle (one block)
+
+PALLAS_MAX_DEPTH = 7  # f32 path-code exactness bound (2*9^7 < 2^24)
+
+# Shared memory one block may opt into on sm_90 (227 KB).
+MAX_SHARED_BYTES = 232448
+_PANEL_ROWS = 9  # rotation rows of a frontier panel (two panels)
+_QUEUE_ROWS = 5  # x, y, z, |c|^2, code of a queued node
+_TABLE_WORDS = 1024  # shared-memory words of the kernel's small tables
+_PLAIN_QUEUE_CHUNK = 32  # queue positions per vectorised ray-test step
+
+
+def _ru128(n: int) -> int:
+    return ((n + 127) // 128) * 128
+
+
+def level_caps(cfg: RenderConfig) -> list[int]:
+    """Static frontier capacity per level, each a multiple of 128.
+
+    The expansion walks live 128-node chunks with data-dependent trip
+    counts, so a generous cap costs memory only, not time. Overflow
+    (survivors beyond the cap) is counted and surfaced in the metrics."""
+    cap = max(128, (cfg.max_frontier // 128) * 128)
+    return [
+        min(_ru128(9**level), cap) for level in range(cfg.max_depth + 1)
+    ]
+
+
+def workspace_words(cfg: RenderConfig) -> int:
+    """f32 words of one bundle's working set: two 9-row rotation panels
+    of the widest level and the 5-row queue of every level."""
+    caps = level_caps(cfg)
+    return 2 * _PANEL_ROWS * max(caps) + _QUEUE_ROWS * sum(caps)
+
+
+def kernel_shared_bytes(cfg: RenderConfig) -> int:
+    """Dynamic shared memory the CUDA kernel needs to hold `cfg`'s
+    working set in one block: `workspace_words` and 1024 words of
+    tables (level scalars, templates, planes, scan scratch, level
+    counts)."""
+    return 4 * (workspace_words(cfg) + _TABLE_WORDS)
+
+
+def _level_tables(templates, fractal: FractalParams, cfg: RenderConfig):
+    """(level_tab [4, depth+1], expand [max(depth, 1), 9, 12]) — the
+    per-level scalars (radius, r^2, 4r^2, lod^2 * r) and, per level and
+    child, the 9 template rotation entries (row-major) followed by the
+    3 displacement entries scaled by the level's tangent distance
+    (1 + ratio) * radius (`Sphereflake.h:162-168`). Computed in plain
+    ops outside the kernel, as the reference does."""
+    depth = cfg.max_depth
+    dev = templates.device
+    levels = torch.arange(depth + 1, dtype=torch.float32, device=dev)
+    radii = fractal.root_radius * fractal.radius_ratio ** levels
+    lod_sq = torch.tensor(cfg.lod_factor**2, dtype=torch.float32, device=dev)
+    level_tab = torch.stack(
+        [radii, radii * radii, 4.0 * radii * radii, lod_sq * radii]
+    )
+    n_expand = max(depth, 1)
+    scales = torch.zeros((n_expand,), dtype=torch.float32, device=dev)
+    if depth > 0:
+        scales = (1.0 + fractal.radius_ratio) * radii[:-1]
+    rot = templates[:, :, :3].reshape(1, 9, 9).expand(n_expand, 9, 9)
+    sdisp = scales[:, None, None] * templates[None, :, :, 3]
+    return level_tab.contiguous(), torch.cat([rot, sdisp], dim=2).contiguous()
+
+
+def _expand_level(rot, t, code, live, planes, tmpl, r_c, lod_rc, cap_n,
+                  with_rot: bool):
+    """One level of the expansion for a batch of bundles: parents
+    (rot [B, 9, n], t [B, 3, n], code [B, n], the first live[b] valid)
+    -> their surviving children compacted in order into `cap_n` slots.
+    Returns (rot', t', code', total [B]) with total the survivor count
+    before the cap. Reads max(live) back to the host."""
+    B = rot.shape[0]
+    dev = rot.device
+    n_chunks = -(-int(live.max()) // _LANES) if B else 0
+    out_rot = torch.zeros((B, 9, cap_n), dtype=torch.float32, device=dev)
+    out_t = torch.zeros((B, 3, cap_n), dtype=torch.float32, device=dev)
+    out_code = torch.zeros((B, cap_n), dtype=torch.float32, device=dev)
+    total = torch.zeros((B,), dtype=torch.int64, device=dev)
+    if n_chunks == 0:
+        return out_rot, out_t, out_code, total
+    P = n_chunks * _LANES
+    # Child lanes in order: chunk-major, then child j, then parent p —
+    # arrays [B, n_chunks, 9, 128].
+    shape = (B, n_chunks, 1, _LANES)
+    R = [rot[:, i, :P].reshape(shape) for i in range(9)]
+    T = [t[:, a, :P].reshape(shape) for a in range(3)]
+    valid = (
+        torch.arange(P, device=dev)[None, :] < live[:, None]
+    ).reshape(shape)
+    col = lambda i: tmpl[:, i].reshape(1, 1, 9, 1)
+    # t'[a] = sum_k R[a, k] * (scale * disp_j[k]) + t[a], k = 0, 1, 2.
+    c = [
+        ((R[3 * a] * col(9) + R[3 * a + 1] * col(10)) + R[3 * a + 2] * col(11))
+        + T[a]
+        for a in range(3)
+    ]
+    cc = c[0] * c[0] + c[1] * c[1] + c[2] * c[2]
+    lim = lod_rc + 2.0 * r_c
+    keep = cc < lim * lim
+    neg2r = -2.0 * r_c
+    for p in range(4):
+        n = planes[:, p].reshape(B, 3, 1, 1, 1)
+        d_p = n[:, 0] * c[0] + n[:, 1] * c[1] + n[:, 2] * c[2]
+        keep = keep & (d_p >= neg2r)
+    keep = (keep & valid).reshape(B, -1)
+    # Stable compaction: survivor w goes to slot rank(w); ranks past the
+    # cap fall into a dump slot that is cut off again.
+    pos = torch.cumsum(keep, dim=1) - 1
+    total = keep.sum(dim=1)
+    dst = torch.where(keep & (pos < cap_n), pos, torch.full_like(pos, cap_n))
+
+    def compact(rows):  # [B, r, lanes] -> [B, r, cap_n]
+        r = rows.shape[1]
+        buf = torch.zeros((B, r, cap_n + 1), dtype=torch.float32, device=dev)
+        buf.scatter_(2, dst[:, None, :].expand(B, r, -1), rows)
+        return buf[:, :, :cap_n]
+
+    j = torch.arange(9, dtype=torch.float32, device=dev).reshape(1, 1, 9, 1)
+    child_code = 9.0 * code[:, :P].reshape(shape) + j
+    small = torch.stack(
+        [x.reshape(B, -1) for x in (*c, child_code.expand_as(cc))], dim=1
+    )
+    packed = compact(small)
+    out_t, out_code = packed[:, :3], packed[:, 3]
+    if with_rot:
+        # R'[a, b] = sum_k R[a, k] * rot_j[k, b], k = 0, 1, 2.
+        child_rot = [
+            (R[3 * a] * col(b) + R[3 * a + 1] * col(3 + b))
+            + R[3 * a + 2] * col(6 + b)
+            for a in range(3)
+            for b in range(3)
+        ]
+        out_rot = compact(
+            torch.stack([x.reshape(B, -1) for x in child_rot], dim=1)
+        )
+    return out_rot, out_t, out_code, total
+
+
+def _trace_bundles_plain(d, planes, root, level_tab, expand, caps):
+    """The kernel's two phases for a batch of bundles: d [B, 3, 1024],
+    planes [B, 4, 3] -> (bt [B, 1024], bc [B, 1024], metrics [B, 8])."""
+    B = d.shape[0]
+    dev = d.device
+    depth = len(caps) - 1
+    rot = torch.zeros((B, 9, caps[0]), dtype=torch.float32, device=dev)
+    t = torch.zeros((B, 3, caps[0]), dtype=torch.float32, device=dev)
+    code = torch.zeros((B, caps[0]), dtype=torch.float32, device=dev)
+    rot[:, :, 0] = root[:, :3].reshape(9)
+    t[:, :, 0] = root[:, 3]
+    code[:, 0] = 1.0
+    live = torch.ones((B,), dtype=torch.int64, device=dev)
+    overflow = torch.zeros_like(live)
+    max_level = torch.zeros_like(live)
+    qlen = torch.zeros_like(live)
+
+    # ---- phase 1: levelwise expansion, every level's live nodes queued
+    queue = []
+    for level in range(depth + 1):
+        max_level = torch.where(
+            live > 0, torch.full_like(live, level), max_level
+        )
+        qlen = qlen + live
+        queue.append((t, code, live))
+        if level == depth:
+            break
+        cap_n = caps[level + 1]
+        rot, t, code, total = _expand_level(
+            rot, t, code, live, planes, expand[level],
+            level_tab[0, level + 1], level_tab[3, level + 1], cap_n,
+            with_rot=level + 1 < depth,
+        )
+        live = torch.clamp_max(total, cap_n)
+        overflow = overflow + torch.clamp_min(total - cap_n, 0)
+
+    # ---- phase 2: every ray tests the queued nodes in queue order;
+    # strict `<`, so the first candidate wins a tie.
+    dx, dy, dz = d[:, 0, :, None], d[:, 1, :, None], d[:, 2, :, None]
+    bt = torch.full((B, TILE_RAYS), _BIG, dtype=torch.float32, device=dev)
+    bc = torch.zeros((B, TILE_RAYS), dtype=torch.float32, device=dev)
+    for level, (qt, qcode, qlive) in enumerate(queue):
+        r2, lodr = level_tab[1, level], level_tab[3, level]
+        n_live = int(qlive.max()) if B else 0
+        for q0 in range(0, n_live, _PLAIN_QUEUE_CHUNK):
+            q1 = min(q0 + _PLAIN_QUEUE_CHUNK, n_live)
+            cx, cy, cz = (qt[:, a, None, q0:q1] for a in range(3))
+            iota = torch.arange(q0, q1, device=dev)
+            in_queue = (iota[None, :] < qlive[:, None])[:, None, :]
+            cc = cx * cx + cy * cy + cz * cz
+            tca = dx * cx + dy * cy + dz * cz  # [B, 1024, q1 - q0]
+            d2 = cc - tca * tca
+            c1 = tca - lodr
+            lod_ok = (c1 < 0.0) | (c1 * c1 < 4.0 * r2 - d2)
+            ok = in_queue & (tca >= 0.0) & lod_ok & (d2 <= r2)
+            ts = tca - torch.sqrt(torch.clamp_min(r2 - d2, 0.0))
+            ts = torch.where(ok, ts, torch.full_like(ts, _BIG))
+            best = torch.amin(ts, dim=2)
+            first = torch.amin(
+                torch.where(ts == best[:, :, None], iota, q1), dim=2
+            )
+            better = best < bt
+            bt = torch.where(better, best, bt)
+            bc = torch.where(
+                better, torch.gather(qcode, 1, torch.clamp_max(first, q1 - 1)),
+                bc,
+            )
+    zero = torch.zeros_like(live)
+    metrics = torch.stack(
+        [qlen, overflow, max_level, live, zero, zero, zero, zero], dim=1
+    )
+    return bt, bc, metrics.to(torch.int32)
+
+
+def _empty_outputs(dev):
+    """(out, metrics) of a call with no bundles."""
+    return (
+        torch.empty((0, 2, 8, _LANES), dtype=torch.float32, device=dev),
+        torch.empty((0, 1, 8), dtype=torch.int32, device=dev),
+    )
+
+
+def trace_tiles_pallas_soa_plain(dirs_k, tile_planes, root, templates,
+                                 fractal: FractalParams, cfg: RenderConfig):
+    """Plain torch version of the traversal kernel — the same function
+    as `csrc/traverse_kernel.cu` in eager ops: the same level caps, the
+    same survivor order (128-parent chunk, then child, then parent), the
+    same sums in the same order, the same strict `<`. Bundles are traced
+    `cfg.tile_batch` at a time. The CPU tests use it, and the kernel is
+    held against it on the card; it reads live counts back to the host,
+    so it is not a frame-path function there. Returns (out [T, 2, 8,
+    128] = (t, code), metrics [T, 1, 8] int32)."""
+    T = dirs_k.shape[0]
+    dev = dirs_k.device
+    caps = level_caps(cfg)
+    level_tab, expand = _level_tables(templates, fractal, cfg)
+    d = dirs_k.reshape(T, 3, TILE_RAYS)
+    outs, mets = [], []
+    batch = max(1, cfg.tile_batch)
+    for s in range(0, T, batch):
+        bt, bc, m = _trace_bundles_plain(
+            d[s:s + batch], tile_planes[s:s + batch], root, level_tab,
+            expand, caps,
+        )
+        outs.append(torch.stack([bt, bc], dim=1))
+        mets.append(m)
+    if not outs:
+        return _empty_outputs(dev)
+    return (
+        torch.cat(outs).reshape(T, 2, 8, _LANES),
+        torch.cat(mets).reshape(T, 1, 8),
+    )
+
+
+def _enqueue_traverse_kernel(dirs_k, tile_planes, root, expand, level_tab,
+                             cfg: RenderConfig):
+    """Enqueue `csrc/traverse_kernel.cu` for every bundle of `dirs_k`,
+    given the level tables of `_level_tables`. The working set lives in
+    shared memory, one block per bundle, when `cfg`'s level caps fit a
+    block; else in a workspace allocated here, one region per block and
+    one block per multiprocessor."""
+    T = dirs_k.shape[0]
+    dev = dirs_k.device
+    out = torch.empty((T, 2, 8, _LANES), dtype=torch.float32, device=dev)
+    metrics = torch.empty((T, 1, 8), dtype=torch.int32, device=dev)
+    shared = kernel_shared_bytes(cfg)
+    if shared <= MAX_SHARED_BYTES:
+        n_blocks = 0
+        workspace = out  # this variant never touches it
+    else:
+        shared = 4 * _TABLE_WORDS
+        n_blocks = min(
+            T, torch.cuda.get_device_properties(dev).multi_processor_count
+        )
+        workspace = torch.empty(
+            (n_blocks, workspace_words(cfg)), dtype=torch.float32, device=dev
+        )
+    fn = kernels.entry_point("traverse_kernel", "sf_trace_tiles", 8, 5)
+    kernels.enqueue(
+        fn, "traverse_kernel",
+        (dirs_k, tile_planes, root, expand, level_tab, out, metrics,
+         workspace),
+        (T, cfg.max_depth, max(level_caps(cfg)), shared, n_blocks), dev,
+    )
+    trace_tiles_pallas_soa.launches += 1
+    return out, metrics
+
+
+def _launch_traverse_kernel(dirs_k, tile_planes, root, templates,
+                            fractal: FractalParams, cfg: RenderConfig):
+    """The kernel path of `trace_tiles_pallas_soa`: level tables in
+    plain ops, then one launch (none for T = 0)."""
+    if dirs_k.shape[0] == 0:
+        return _empty_outputs(dirs_k.device)
+    level_tab, expand = _level_tables(templates, fractal, cfg)
+    return _enqueue_traverse_kernel(
+        dirs_k, tile_planes, root, expand, level_tab, cfg
+    )
+
+
+def trace_tiles_pallas_soa(
+    dirs_k: torch.Tensor,  # [T, 3, 8, 128] unit ray dirs per bundle
+    tile_planes: torch.Tensor,  # [T, 4, 3] inward unit frustum normals
+    root: torch.Tensor,  # [3, 4]
+    templates: torch.Tensor,  # [9, 3, 4]
+    fractal: FractalParams,
+    cfg: RenderConfig,
+):
+    """Trace every 1024-ray bundle through the 9-ary tree on its own:
+    returns (out [T, 2, 8, 128], metrics [T, 1, 8] int32). out[:, 0] is
+    the hit distance (BIG at a miss), out[:, 1] the winner's
+    sentinel-prefixed base-9 path code (0.0 at a miss). metrics columns:
+    queue length (nodes tested per ray), overflow (survivors dropped at
+    the level caps), deepest level with a live node, live count of the
+    last level, four zeros.
+
+    Inputs are detached: gradients flow through `resolve_codes`.
+
+    CUDA tensors launch the hand-written kernel (or raise); CPU tensors
+    run the plain version. T = 0 returns empty outputs without a
+    launch. Launches on the current stream, never synchronises.
+    `trace_tiles_pallas_soa.launches` counts kernel launches."""
+    assert cfg.max_depth <= PALLAS_MAX_DEPTH, (
+        f"pallas path supports max_depth <= {PALLAS_MAX_DEPTH} "
+        "(f32 path-code exactness); use an XLA algorithm for deeper"
+    )
+    kernels.check_tensors(
+        [
+            ("dirs_k", dirs_k, torch.float32, (None, 3, 8, _LANES)),
+            ("tile_planes", tile_planes, torch.float32,
+             (dirs_k.shape[0] if isinstance(dirs_k, torch.Tensor) else None,
+              4, 3)),
+            ("root", root, torch.float32, (3, 4)),
+            ("templates", templates, torch.float32, (9, 3, 4)),
+        ],
+        dirs_k, "dirs_k",
+    )
+    dirs_k, tile_planes = dirs_k.detach(), tile_planes.detach()
+    root, templates = root.detach(), templates.detach()
+    fractal = dataclasses.replace(fractal, **{
+        f.name: getattr(fractal, f.name).detach()
+        for f in dataclasses.fields(fractal)
+    })
+    if dirs_k.device.type == "cuda":
+        return _launch_traverse_kernel(
+            dirs_k, tile_planes, root, templates, fractal, cfg
+        )
+    return trace_tiles_pallas_soa_plain(
+        dirs_k, tile_planes, root, templates, fractal, cfg
+    )
+
+
+trace_tiles_pallas_soa.launches = 0
+
+
+def trace_tiles_pallas(tile_dirs, tile_planes, root, templates,
+                       fractal: FractalParams, cfg: RenderConfig):
+    """Trace all bundles with the traversal kernel (AoS directions
+    wrapper): tile_dirs [T, 1024, 3]. Returns (min_t [T, 1024], code
+    [T, 1024], metrics [T, 1, 8] int32)."""
+    T, rays, _ = tile_dirs.shape
+    assert rays == TILE_RAYS, (
+        f"pallas path requires {TILE_RAYS}-ray tiles (one [8,128] vreg "
+        f"per tile), got {rays}; pick tile_h*tile_w == {TILE_RAYS}"
+    )
+    dirs_k = torch.movedim(tile_dirs, 2, 1).reshape(T, 3, 8, _LANES)
+    out, metrics = trace_tiles_pallas_soa(
+        dirs_k.contiguous(), tile_planes, root, templates, fractal, cfg
+    )
+    return (
+        out[:, 0].reshape(T, TILE_RAYS),
+        out[:, 1].reshape(T, TILE_RAYS),
+        metrics,
+    )
 
 
 def resolve_codes_soa(

@@ -1,5 +1,13 @@
-"""Full-frame G-buffer rendering: camera -> expansion -> binning -> the
-fused kernel -> untile, and `render_frame` = G-buffer + post chain.
+"""Full-frame G-buffer rendering and `render_frame` = G-buffer + post
+chain, by `cfg.algorithm`:
+
+- "binned" (production): camera -> global expansion -> binning -> the
+  fused raygen + trace + shade kernel -> untile;
+- "pallas": raygen -> per-tile frustum planes -> the per-tile traversal
+  kernel (`ops/pallas_traversal.py`) -> path-code resolve -> shade ->
+  untile (`_render_gbuffer_soa`);
+- "fast": the same tiles through the plain-op cone-culled traversal
+  (`ops/traversal.trace_tile_fast`), `cfg.tile_batch` tiles at a time.
 
 Counterpart of the reference package's `render.py` (itself the
 replacement of the C++ app's worker-thread loop,
@@ -8,9 +16,9 @@ replacement of the C++ app's worker-thread loop,
 (camera-relative positions, unit normals, zeros for sky), plus its live
 metrics (`Sphereflake.h:30-58`) as 0-d device tensors.
 
-Only `algorithm="binned"` is ported; any other raises
-`NotImplementedError`. The frame runs under `torch.no_grad()` and reads
-nothing back to the host between entry and return.
+"strict" and "loose" are not ported and raise `NotImplementedError`.
+The frame runs under `torch.no_grad()`; on the card it reads nothing
+back to the host between entry and return.
 """
 
 from __future__ import annotations
@@ -19,10 +27,26 @@ import dataclasses
 
 import torch
 
+from sphereflake_tpu_torch.camera import (
+    corner_rays,
+    pixel_grid,
+    ray_directions,
+    tile_frustum_planes,
+)
 from sphereflake_tpu_torch.config import (
     RenderConfig,
     SceneParams,
     resolve_device,
+)
+from sphereflake_tpu_torch.models.sphereflake import (
+    child_templates,
+    root_frame,
+)
+from sphereflake_tpu_torch.ops.traversal import (
+    TraceResult,
+    algorithm_not_ported,
+    shade_gbuffer,
+    tile_tracer,
 )
 
 _BIG = 3.0e38
@@ -74,24 +98,21 @@ def _untile_rows(out, cfg: RenderConfig) -> list:
     return [_untile(out[:, c].reshape(T, rays), cfg) for c in range(C)]
 
 
-def _algorithm_not_ported(algorithm: str):
-    return NotImplementedError(
-        f"algorithm={algorithm!r} is not ported to sphereflake_tpu_torch "
-        "yet (ROADMAP.md queue 1, M10 'Side paths'); only 'binned' renders"
-    )
-
-
 def grow_capacity(cfg: RenderConfig) -> RenderConfig:
     """Next config in the capacity ladder after an overflow (capacity
     may cost speed, never correctness — the C++ app's recursion visits
     every LOD-passing node, `Sphereflake.h:165-172`).
 
-    Double global_cap until every level-5 parent fits the expansion
-    gate cap (ecap = global_cap/9 >= 59049), then cut the band height —
-    banding slices the live set per band, which bounds capacity at ANY
-    pose."""
+    Binned path: double global_cap until every level-5 parent fits the
+    expansion gate cap (ecap = global_cap/9 >= 59049), then cut the band
+    height — banding cuts the live set per band, which bounds capacity
+    at ANY pose. Per-tile paths: double max_frontier (past what one
+    block's shared memory holds, the traversal kernel keeps its working
+    set in device memory)."""
+    if cfg.algorithm in ("strict", "loose"):
+        raise algorithm_not_ported(cfg.algorithm)
     if cfg.algorithm != "binned":
-        raise _algorithm_not_ported(cfg.algorithm)
+        return dataclasses.replace(cfg, max_frontier=cfg.max_frontier * 2)
     if cfg.global_cap < (9 << 16):
         return dataclasses.replace(cfg, global_cap=cfg.global_cap * 2)
     rows = cfg.effective_band_rows or cfg.tiles_y
@@ -185,17 +206,211 @@ def _render_gbuffer_binned(scene: SceneParams, cfg: RenderConfig) -> GBuffer:
     )
 
 
+def trace_tiles(
+    tiles,  # [T, R, 3] unit ray dirs
+    tile_planes,  # [T, 4, 3] frustum planes (pallas path only)
+    scene: SceneParams,
+    cfg: RenderConfig,
+) -> TraceResult:
+    """Trace a batch of ray tiles — the unified dispatch over the
+    per-tile traversal implementations (`cfg.algorithm`), batched over
+    tiles. Differentiable on the pallas path through the path-code
+    recompute (`ops/pallas_traversal.resolve_codes`)."""
+    root = root_frame(scene.camera.position)
+    templates = child_templates(scene.fractal)
+
+    assert cfg.algorithm != "binned", (
+        "the binned path renders whole blocks (raygen is fused into "
+        "the kernel) — use render_gbuffer / _render_gbuffer_binned"
+    )
+    if cfg.algorithm == "pallas":
+        from sphereflake_tpu_torch.ops.pallas_traversal import (
+            resolve_codes,
+            trace_tiles_pallas,
+        )
+
+        _, code, m = trace_tiles_pallas(
+            tiles, tile_planes, root, templates, scene.fractal, cfg
+        )
+        min_t, center, hit = resolve_codes(
+            tiles, code, root, templates, scene.fractal, cfg
+        )
+        return TraceResult(
+            min_t=min_t,
+            center=center,
+            hit=hit,
+            max_depth_reached=torch.max(m[:, 0, 2]),
+            nodes_visited=m[:, 0, 0].sum(dtype=torch.int32),
+            overflow=m[:, 0, 1].sum(dtype=torch.int32),
+        )
+
+    tracer = tile_tracer(cfg)
+    batch = max(1, cfg.tile_batch)
+    parts = [
+        tracer(tiles[s:s + batch], root, templates, scene.fractal, cfg)
+        for s in range(0, tiles.shape[0], batch)
+    ]
+    cat = lambda name: torch.cat([getattr(p, name) for p in parts])
+    return TraceResult(
+        min_t=cat("min_t"),
+        center=cat("center"),
+        hit=cat("hit"),
+        max_depth_reached=torch.max(cat("max_depth_reached")),
+        nodes_visited=cat("nodes_visited").sum(dtype=torch.int32),
+        overflow=cat("overflow").sum(dtype=torch.int32),
+    )
+
+
+def _frame_metrics(cfg: RenderConfig, depth_r, nodes_n, overflow, min_t_img,
+                   hit_img) -> RenderMetrics:
+    big = torch.full_like(min_t_img, _BIG)
+    return RenderMetrics(
+        max_depth_reached=depth_r,
+        nodes_visited=nodes_n,
+        overflow=overflow,
+        closest_distance=torch.min(torch.where(hit_img, min_t_img, big)),
+        rays_traced=torch.tensor(
+            cfg.width * cfg.height, dtype=torch.int32, device=min_t_img.device
+        ),
+    )
+
+
+def _soa_raygen(scene: SceneParams, cfg: RenderConfig) -> list:
+    """Unit ray direction components (dx, dy, dz), each [T, 1024] in
+    tile order, of cfg's padded frame. Same association order as
+    `camera.ray_directions` ((tl + (ex*u + ey*v)) - origin), so the two
+    direction computations agree to the last ulp; the divisors are
+    tensors (a true division on every device)."""
+    origin, tl, tr, bl = corner_rays(scene.camera, cfg.width / cfg.height)
+    dev = origin.device
+    ex, ey = tr - tl, bl - tl
+    u = torch.arange(
+        cfg.padded_width, dtype=torch.float32, device=dev
+    )[None, :] / origin.new_tensor(float(cfg.width))
+    v = torch.arange(
+        cfg.padded_height, dtype=torch.float32, device=dev
+    )[:, None] / origin.new_tensor(float(cfg.height))
+    comps = [(tl[a] + (ex[a] * u + ey[a] * v)) - origin[a] for a in range(3)]
+    # Matches `transforms.normalize` (exact math, eps 0).
+    dnorm = torch.sqrt(comps[0] ** 2 + comps[1] ** 2 + comps[2] ** 2)
+    return [_tile(c / dnorm, cfg) for c in comps]
+
+
+def _soa_shade(dx, dy, dz, min_t, cx, cy, cz, hit):
+    """G-buffer shading on flat component tensors (same math as
+    `ops.traversal.shade_gbuffer`): (px, py, pz, nx, ny, nz), zeros at
+    sky."""
+    from sphereflake_tpu_torch.ops.intersect import safe_sqrt
+
+    zero = torch.zeros_like(min_t)
+    t0 = torch.where(hit, min_t, zero)
+    px, py, pz = dx * t0, dy * t0, dz * t0
+    wx, wy, wz = px - cx, py - cy, pz - cz
+    nn = safe_sqrt(wx * wx + wy * wy + wz * wz)
+    nn = torch.where(nn > 0, nn, torch.ones_like(nn))
+    return (
+        torch.where(hit, px, zero),
+        torch.where(hit, py, zero),
+        torch.where(hit, pz, zero),
+        torch.where(hit, wx / nn, zero),
+        torch.where(hit, wy / nn, zero),
+        torch.where(hit, wz / nn, zero),
+    )
+
+
+def _render_gbuffer_soa(scene: SceneParams, cfg: RenderConfig) -> GBuffer:
+    """SoA pipeline for the per-tile traversal kernel: every
+    intermediate is a [T, 1024]- or [N]-shaped component tensor, which
+    is the kernel's own layout ([T, 3, 8, 128] in, [T, 2, 8, 128] out);
+    the [H, W, 3] G-buffer planes materialize exactly once, at the end."""
+    from sphereflake_tpu_torch.ops.pallas_traversal import (
+        resolve_codes_soa,
+        trace_tiles_pallas_soa,
+    )
+
+    T = cfg.tiles_y * cfg.tiles_x
+    rays = cfg.tile_h * cfg.tile_w
+    tiled = _soa_raygen(scene, cfg)  # [T, R] each
+    dirs_k = torch.stack([t.reshape(T, 8, 128) for t in tiled], dim=1)
+
+    root = root_frame(scene.camera.position)
+    templates = child_templates(scene.fractal)
+    planes = tile_frustum_planes(
+        scene.camera, cfg.width, cfg.height, cfg.tile_h, cfg.tile_w,
+        block_h=cfg.padded_height, block_w=cfg.padded_width,
+    )
+    out, m = trace_tiles_pallas_soa(
+        dirs_k, planes.contiguous(), root, templates, scene.fractal, cfg
+    )
+    code = out[:, 1].reshape(-1)
+    dx, dy, dz = (t.reshape(-1) for t in tiled)
+    min_t, cx, cy, cz, hit = resolve_codes_soa(
+        dx, dy, dz, code, root, templates, scene.fractal, cfg
+    )
+    shaded = _soa_shade(dx, dy, dz, min_t, cx, cy, cz, hit)
+
+    def img(flat):
+        return _untile(flat.reshape(T, rays), cfg)
+
+    min_t_img = img(min_t)
+    hit_img = img(hit)
+    return GBuffer(
+        position=torch.stack([img(c) for c in shaded[:3]], dim=-1),
+        normal=torch.stack([img(c) for c in shaded[3:]], dim=-1),
+        min_t=min_t_img,
+        hit=hit_img,
+        metrics=_frame_metrics(
+            cfg, torch.max(m[:, 0, 2]), m[:, 0, 0].sum(dtype=torch.int32),
+            m[:, 0, 1].sum(dtype=torch.int32), min_t_img, hit_img,
+        ),
+    )
+
+
+def _render_gbuffer_tiles(scene: SceneParams, cfg: RenderConfig) -> GBuffer:
+    """The generic per-tile pipeline (`trace_tiles` + `shade_gbuffer`)."""
+    # Ray math uses the ORIGINAL width/height for the NDC mapping; the
+    # grid extends to the padded dims (extra rows/cols extrapolate the
+    # corner interpolation and are cropped by `_untile`).
+    xs, ys = pixel_grid(
+        cfg.padded_width, cfg.padded_height, device=scene.device
+    )
+    dirs = ray_directions(scene.camera, xs, ys, cfg.width, cfg.height)
+    tiles = _tile(dirs, cfg)  # [T, R, 3]
+    planes = tile_frustum_planes(
+        scene.camera, cfg.width, cfg.height, cfg.tile_h, cfg.tile_w,
+        block_h=cfg.padded_height, block_w=cfg.padded_width,
+    )
+    res = trace_tiles(tiles, planes, scene, cfg)
+    position_t, normal_t = shade_gbuffer(tiles, res)
+    min_t = _untile(res.min_t, cfg)
+    hit = _untile(res.hit, cfg)
+    return GBuffer(
+        position=_untile(position_t, cfg),
+        normal=_untile(normal_t, cfg),
+        min_t=min_t,
+        hit=hit,
+        metrics=_frame_metrics(
+            cfg, res.max_depth_reached, res.nodes_visited, res.overflow,
+            min_t, hit,
+        ),
+    )
+
+
 def render_gbuffer(
     scene: SceneParams, cfg: RenderConfig, device="cuda"
 ) -> GBuffer:
     """Render the full-frame G-buffer for `scene` on `device` (the
     scene's leaves are moved there; asking for "cuda" without one
     raises). Forward only."""
-    if cfg.algorithm != "binned":
-        raise _algorithm_not_ported(cfg.algorithm)
+    if cfg.algorithm in ("strict", "loose"):
+        raise algorithm_not_ported(cfg.algorithm)
     scene = scene.to(resolve_device(device))
     with torch.no_grad():
-        return _render_gbuffer_binned(scene, cfg)
+        if cfg.algorithm == "binned":
+            return _render_gbuffer_binned(scene, cfg)
+        if cfg.algorithm == "pallas":
+            return _render_gbuffer_soa(scene, cfg)
+        return _render_gbuffer_tiles(scene, cfg)
 
 
 def render_frame(scene: SceneParams, cfg: RenderConfig, device="cuda"):

@@ -88,6 +88,13 @@ def test_unported_flags_are_not_declared():
                  "--animate", "--animate-mode", "--speed-factor",
                  "--frameless"):
         assert flag in flags
+    # so are the per-tile paths; the parity traversals are not offered
+    for flag in ("--max-frontier", "--tile-batch"):
+        assert flag in flags
+    assert "--loose-lod" not in flags
+    algorithm = next(a for a in build_parser()._actions
+                     if a.dest == "algorithm")
+    assert tuple(algorithm.choices) == ("auto", "binned", "pallas", "fast")
 
 
 def test_cuda_without_a_card_is_an_error_not_a_cpu_run(tmp_path, capsys):

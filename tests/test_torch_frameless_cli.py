@@ -251,11 +251,12 @@ def test_frameless_animate_rejects_unknown_modes_and_algorithms():
         next(port_animate.frameless_animate(
             scene, _CFG, 1, mode="zoom", device="cpu"
         ))
-    with pytest.raises(AssertionError, match="binned"):
-        next(port_animate.frameless_animate(
-            scene, dataclasses.replace(_CFG, algorithm="pallas"), 1,
-            device="cpu",
-        ))
+    for algorithm, tile in (("pallas", (32, 32)), ("fast", (32, 32))):
+        cfg = dataclasses.replace(
+            _CFG, algorithm=algorithm, tile_h=tile[0], tile_w=tile[1]
+        )
+        with pytest.raises(AssertionError, match="binned"):
+            next(port_animate.frameless_animate(scene, cfg, 1, device="cpu"))
 
 
 def test_camera_helpers_match_reference():

@@ -234,10 +234,10 @@ def test_overflow_accumulates_and_cursor_carries_on_the_sample_path():
     assert int(st.overflow) == 2 * 7 and st.sample_lo == 1024
 
 
-@pytest.mark.parametrize("algorithm", ["pallas", "fast", "strict", "loose"])
+@pytest.mark.parametrize("algorithm", ["strict", "loose"])
 def test_unported_algorithms_raise(algorithm):
-    """The per-tile traversal kernel's branch and the plain-op
-    fallbacks name their ROADMAP item instead of taking another path."""
+    """The parity traversals, not ported yet, name their ROADMAP item
+    instead of taking another path."""
     cfg = PortConfig(width=96, height=64, tile_h=32, tile_w=32,
                      algorithm=algorithm)
     scene = port_scene(default_scene())

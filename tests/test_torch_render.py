@@ -275,10 +275,10 @@ def test_grow_capacity_ladder_matches_reference():
         port_render.grow_capacity(cfg)
 
 
-@pytest.mark.parametrize("algorithm", ["fast", "strict", "loose", "pallas"])
+@pytest.mark.parametrize("algorithm", ["strict", "loose"])
 def test_unported_algorithms_raise(algorithm):
-    """Any algorithm other than binned names its ROADMAP item instead of
-    silently taking another path."""
+    """The parity traversals, not ported yet, name their ROADMAP item
+    instead of silently taking another path."""
     cfg = PortConfig(width=128, height=64, tile_h=32, tile_w=32,
                      algorithm=algorithm)
     scene = port_scene(default_scene())
