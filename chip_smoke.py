@@ -22,6 +22,8 @@ card. Phases, each printing one or more JSON lines:
    ids of step 0) and ray bundles (one 65,536-sample batch of
    `progressive_step`) — and their deep variants on a depth-8 dive pose;
    the subset rows must equal the full-grid rows gathered at the ids;
+   both item modes bit for bit on constructed spans (exact ties across
+   work items, spans of one item and one pair more, empty, repeated ids);
    then the traversal kernel on the bundles of a 1080p depth-6 pallas
    frame, on the 64 Sobol bundles of a 65,536-sample step, at a depth-7
    dive, in a constructed overflow case, and at frontiers past one
@@ -119,6 +121,11 @@ CROSS_T_CLOSE_MIN = 0.93
 CROSS_T_LEAF_MIN = 0.98
 
 
+# Cycles of the spin kernel that `event_ms(queued=True)` lines launches up
+# behind: some 20 ms at the card's 1.7 to 2 GHz.
+SPIN_CYCLES = 40_000_000
+
+
 def emit(phase: str, **kw):
     print(json.dumps({"phase": phase, **kw}), flush=True)
 
@@ -128,11 +135,16 @@ def fail(msg: str):
     sys.exit(1)
 
 
-def event_ms(torch, fn, reps: int) -> float:
-    """Mean milliseconds of `fn()` over `reps` runs, by CUDA events."""
+def event_ms(torch, fn, reps: int, queued: bool = False) -> float:
+    """Mean milliseconds of `fn()` over `reps` runs, by CUDA events.
+    With `queued` the runs wait behind a spin kernel (some 20 ms) while
+    the host enqueues them all: the time is then the device's alone,
+    also where one run is shorter than the host takes to enqueue it."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    if queued:
+        torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -313,6 +325,160 @@ def record_bundles(binned, step):
     """The arguments of every ray-bundle kernel launch of `step()`
     (dirs_k, pairs, starts, lens, cfg)."""
     return record_launches(binned, "_launch_dirs_kernel", step)
+
+
+def item_tables(torch, dev, item_pairs: int, deep: bool):
+    """A constructed pair table for the item modes of the pair kernel
+    (spans cut into items of `item_pairs` pairs): a 64x32 frame of two
+    32x32 tiles, camera at the origin looking down -z, so that pixel
+    column 32 (tile 1, column 0) has dx == 0 exactly. Two unit spheres
+    mirrored about x = 0 sit, under different codes, at span positions
+    whose k mod 8 runs against k across the items: 7 (-x, chain 7), 9
+    (+x, chain 1), C + 2 (-x, chain 2), 2C + 8 (+x, chain 0: the winner
+    on the tie column, in the third item) and 2C + 15 (-x, chain 7); the
+    columns between hold seeded small spheres. Returns (cam, pairs, cfg,
+    spans): `spans` maps a name to (starts, lens) of length 2 — the tie
+    span on both tiles, spans of exactly C and C + 1, an empty span and
+    a span of one pair."""
+    import numpy as np
+
+    from sphereflake_tpu_torch.config import RenderConfig
+
+    C = item_pairs
+    n_rows = 8 if deep else 7
+    r_lodr, r_rc4 = (6, 7) if deep else (5, 6)
+    first, span = 3, 2 * C + 16
+    cap = first + span + 5
+    rng = np.random.default_rng(C + deep)
+    # Small spheres in front, none of them over the tie column (|x| >= 0.2).
+    c = np.stack([rng.uniform(0.2, 1.2, cap) * rng.choice([-1.0, 1.0], cap),
+                  rng.uniform(-0.6, 0.6, cap),
+                  rng.uniform(-4.5, -3.0, cap)]).astype(np.float32)
+    r = rng.uniform(0.02, 0.1, cap).astype(np.float32)
+    for i, k in enumerate((7, 9, C + 2, 2 * C + 8, 2 * C + 15)):
+        c[:, first + k] = (0.75 if i % 2 else -0.75, 0.0, -5.0)
+        r[first + k] = 1.0
+    cc = (c * c).sum(0, dtype=np.float32)
+    pairs = np.zeros((n_rows, cap), np.float32)
+    pairs[0:3] = c
+    pairs[3] = r * r - cc
+    pairs[4] = np.arange(1, cap + 1, dtype=np.float32)
+    if deep:
+        pairs[5] = np.arange(cap, 0, -1, dtype=np.float32)
+    pairs[r_lodr] = np.float32(4900.0) * r
+    pairs[r_rc4] = np.float32(4.0) * r * r - cc
+    cam = np.asarray(
+        [-1.0, 0.5, -1.0, 2.0, 0.0, 0.0, 0.0, -1.0, 0.0, 0.0, 0.0, 0.0,
+         0.0, 0.0, 64.0, 32.0], np.float32,
+    )
+    cfg = RenderConfig(width=64, height=32, tile_h=32, tile_w=32,
+                       algorithm="binned", max_depth=7 if deep else 3)
+    i32 = lambda *v: torch.tensor(v, dtype=torch.int32, device=dev)
+    spans = {
+        "ties across items": (i32(first, first), i32(span, span)),
+        "C and C + 1": (i32(5, C + 2), i32(C, C + 1)),
+        "empty and one pair": (i32(10, first + 2 * C + 8), i32(0, 1)),
+    }
+    return (torch.from_numpy(cam).to(dev), torch.from_numpy(pairs).to(dev),
+            cfg, spans)
+
+
+def item_cases(torch, binned, dev):
+    """Hold the subset and the ray-bundle mode against their plain
+    versions on `item_tables`, bit for bit: every span under both modes,
+    shallow and deep, the subset with ids that repeat. Returns one
+    result per mode; any difference is listed in its `unequal`."""
+    bits = lambda x: x.contiguous().view(torch.int32)
+    C = binned.ITEM_PAIRS
+    results = {m: dict(item_pairs=C, cases=0, unequal=[], tie_column_code=[])
+               for m in ("pairs_kernel_subset", "pairs_kernel_dirs")}
+    ids = torch.tensor([1, 0, 1, 1, 0], dtype=torch.int32, device=dev)
+    # A copy's code is its column's number + 1 (first = 3). On the tie
+    # column (row 0 is tile 1; its pixel column 0) the +x copy at 2C + 8
+    # must be the only copy that wins.
+    copy_codes = {float(3 + k + 1) for k in (7, 9, C + 2, 2 * C + 8, 2 * C + 15)}
+    winner_code = float(3 + 2 * C + 8 + 1)
+
+    def tie_column_codes(rows):
+        col = rows[0, 1].reshape(32, 32)[:, 0]
+        return sorted(copy_codes & set(col.tolist()))
+
+    for deep in (False, True):
+        cam, pairs, cfg, spans = item_tables(torch, dev, C, deep)
+        dx, dy, dz = binned._tile_raygen(cam, ids, cfg)
+        dirs_k = torch.stack([dx, dy, dz], dim=1).reshape(-1, 3, 8, 128)
+        for name, (starts, lens) in spans.items():
+            label = f"{name}{', deep' if deep else ''}"
+            for shade_only in (True, False):
+                args = (cam, pairs, starts, lens, ids, cfg)
+                got, got_m = binned.trace_pairs_fused_subset(
+                    *args, shade_only=shade_only)
+                torch.cuda.synchronize()
+                want, want_m = binned.trace_pairs_fused_subset_plain(
+                    *args, shade_only=shade_only)
+                res = results["pairs_kernel_subset"]
+                res["cases"] += 1
+                if not (torch.equal(bits(got), bits(want))
+                        and torch.equal(got_m, want_m)):
+                    res["unequal"].append(
+                        f"{label}, {'shade_only' if shade_only else 'coded'}")
+                if name == "ties across items" and not shade_only:
+                    res["tie_column_code"].append(tie_column_codes(got))
+            b_starts, b_lens = starts[ids.long()], lens[ids.long()]
+            got, got_m = binned.trace_pairs_pallas_soa(
+                dirs_k, pairs, b_starts.contiguous(), b_lens.contiguous(), cfg)
+            torch.cuda.synchronize()
+            want, want_m = binned.trace_pairs_pallas_soa_plain(
+                dirs_k, pairs, b_starts, b_lens, cfg)
+            res = results["pairs_kernel_dirs"]
+            res["cases"] += 1
+            if not (torch.equal(bits(got), bits(want))
+                    and torch.equal(got_m, want_m)):
+                res["unequal"].append(label)
+            if name == "ties across items":
+                res["tie_column_code"].append(tie_column_codes(got))
+    for res in results.values():
+        res["tie_winner_code"] = winner_code
+        if any(codes != [winner_code] for codes in res["tie_column_code"]):
+            res["unequal"].append("tie column: wrong winner")
+    return results
+
+
+def item_stats(lens, item_pairs: int):
+    """How a launch's spans cut into work items of `item_pairs` pairs:
+    an empty span is one item."""
+    n = ((lens + item_pairs - 1) // item_pairs).clamp(min=1)
+    return dict(
+        item_pairs=item_pairs, items=int(n.sum()),
+        longest_item=int(lens.clamp(max=item_pairs).max()),
+        rows=int(lens.numel()), rows_of_one_item=int((n == 1).sum()),
+        most_items_in_a_row=int(n.max()),
+    )
+
+
+def walk_demand(torch, dx, dy, dz, pairs, row_start, row_len):
+    """What a launch's data asks of the item walk (shallow table),
+    counted in plain ops: of the (warp, pair) tests — a warp is 16 x 8
+    pixels of a tile, or the 128 rays of a bundle in that layout — the
+    share in which some ray has disc >= 0, so that the warp goes past
+    the early out to the LOD gate and the square root; and of the (ray,
+    pair) tests the share that passes `ok`."""
+    n_rows, n_cols = dx.shape[0], pairs.shape[1]
+    starts_l = row_start.long()
+    warp_pass = torch.zeros((), dtype=torch.int64, device=dx.device)
+    ray_ok = torch.zeros_like(warp_pass)
+    for k in range(int(row_len.max())):
+        cols = pairs[:, torch.clamp_max(starts_l + k, n_cols - 1)]
+        tca = dx * cols[0][:, None] + dy * cols[1][:, None] + dz * cols[2][:, None]
+        t2 = tca * tca
+        reach = (k < row_len)[:, None] & (t2 + cols[3][:, None] >= 0.0)
+        c1p = torch.clamp_min(tca - cols[5][:, None], 0.0)
+        ray_ok += (reach & (tca >= 0.0)
+                   & (c1p * c1p < t2 + cols[6][:, None])).sum()
+        warp_pass += reach.reshape(n_rows, 4, 8, 2, 16).any(4).any(2).sum()
+    walked = int(row_len.sum())
+    return dict(warp_pass_share=int(warp_pass) / (8 * walked),
+                ray_ok_share=int(ray_ok) / (1024 * walked))
 
 
 def compare_traversal(torch, out_k, m_k, out_p, m_p):
@@ -544,6 +710,21 @@ def main(argv) -> int:
         check_agreement(f"pairs_kernel_subset ({variant})", res, m_eq)
     if not k2_eq_k1:
         fail("subset rows differ from the full-grid rows gathered at the ids")
+    # Every tile of the frame as one id list (more rows than one piece of
+    # the prologue's prefix sum): the full-grid rows, row for row.
+    with torch.no_grad():
+        all_ids = torch.arange(n_tiles, dtype=torch.int32, device=dev)
+        k2_all, k2_all_m = trace_pairs_fused_subset(
+            cam, tpairs, tstarts, tlens, all_ids, cfg
+        )
+    k2_all_eq = bool(torch.equal(k2_all, k1_trim)) and bool(
+        torch.equal(k2_all_m[:, 0, 0], tlens)
+    )
+    emit("kernel_vs_plain", kernel="pairs_kernel_subset",
+         variant="every tile as one id list", shape=dict(ids=n_tiles),
+         equals_full_grid_rows=k2_all_eq)
+    if not k2_all_eq:
+        fail("the subset mode on every tile differs from the full grid")
 
     # Deep variant: ids that repeat and are not sorted.
     import numpy as np
@@ -612,6 +793,21 @@ def main(argv) -> int:
     )
     if k3_out.shape != (SAMPLE_BATCH // 1024, 5, 8, 128) or k3d_out.shape[1] != 6:
         fail("ray-bundle kernel output has the wrong shape")
+
+    # -- the item decomposition of the two modes, on constructed tables:
+    # exact ties across item boundaries, spans of exactly one item and one
+    # pair more, an empty span, ids that repeat; bit for bit ------------
+    with torch.no_grad():
+        item_results = item_cases(torch, binned, dev)
+    for kernel_name, res in item_results.items():
+        emit("kernel_vs_plain", kernel=kernel_name,
+             variant="constructed spans: ties across items, C, C + 1, empty, "
+                     "one pair; shallow and deep",
+             equal=not res["unequal"], **res)
+        if res["unequal"] or not res["cases"]:
+            fail(f"{kernel_name} differs from its plain version on the "
+                 f"constructed spans: {res['unequal']}")
+    ITEM_PAIRS = binned.ITEM_PAIRS
 
     # -- the traversal kernel, on the launches the per-tile path makes ---
     pcfg = dataclasses.replace(cfg, algorithm="pallas")
@@ -1141,33 +1337,57 @@ def main(argv) -> int:
             torch, lambda: progressive_tile_ids(st0, cfg, TILES_PER_STEP), 20
         )
         cam_ms = event_ms(torch, lambda: camera_vector(scene, cfg), 20)
-        k2_ms = event_ms(
-            torch,
-            lambda: trace_pairs_fused_subset(*k2_args, shade_only=True), 50,
-        )
-        k2_coded_ms = event_ms(
-            torch, lambda: trace_pairs_fused_subset(*k2_args), 50
-        )
+        # The kernels' own times: queued behind a spin kernel, so that the
+        # host's pace of enqueueing (slower than the kernel on a busy host)
+        # stays out of them. `host_paced_ms` is the same call at that pace.
+        k2_shade_call = lambda: trace_pairs_fused_subset(
+            *k2_args, shade_only=True)
+        k2_coded_call = lambda: trace_pairs_fused_subset(*k2_args)
+        k2_ms = event_ms(torch, k2_shade_call, 50, queued=True)
+        k2_coded_ms = event_ms(torch, k2_coded_call, 50, queued=True)
         # Once more in the other order: the two flavours within one run.
-        k2_again_ms = event_ms(
-            torch,
-            lambda: trace_pairs_fused_subset(*k2_args, shade_only=True), 50,
-        )
-        k2_coded_again_ms = event_ms(
-            torch, lambda: trace_pairs_fused_subset(*k2_args), 50
-        )
+        k2_again_ms = event_ms(torch, k2_shade_call, 50, queued=True)
+        k2_coded_again_ms = event_ms(torch, k2_coded_call, 50, queued=True)
+        k2_host_paced_ms = event_ms(torch, k2_shade_call, 50)
         k2_untrimmed_ms = event_ms(
             torch,
             lambda: trace_pairs_fused_subset(
                 cam, prep_full[0], prep_full[1], prep_full[2], ids, cfg,
                 shade_only=True,
             ),
-            50,
+            50, queued=True,
         )
         k2_plain_ms = event_ms(
             torch,
             lambda: trace_pairs_fused_subset_plain(*k2_args, shade_only=True),
             1,
+        )
+        # Where the subset mode's time goes: the same ids against empty
+        # segments (raygen, shading, stores and the items' fixed costs, no
+        # tests), with the longest segments first (the draw at its best
+        # balance), and the call's two launches apart.
+        no_lens = torch.zeros_like(tlens)
+        k2_no_pairs_ms = event_ms(
+            torch,
+            lambda: trace_pairs_fused_subset(
+                cam, tpairs, tstarts, no_lens, ids, cfg,
+                shade_only=True,
+            ),
+            50, queued=True,
+        )
+        ids_by_len = ids[
+            torch.argsort(tlens[ids_l], descending=True)].contiguous()
+        k2_longest_first_ms = event_ms(
+            torch,
+            lambda: trace_pairs_fused_subset(
+                cam, tpairs, tstarts, tlens, ids_by_len, cfg, shade_only=True,
+            ),
+            50, queued=True,
+        )
+        k2_launches = profile_device(torch, k2_shade_call, 20)
+        k2_demand = walk_demand(
+            torch, *binned._tile_raygen(cam, ids, cfg), tpairs,
+            tstarts[ids_l], tlens[ids_l],
         )
 
         def scatter():
@@ -1255,14 +1475,52 @@ def main(argv) -> int:
             sobol_raygen=event_ms(torch, pixels, 10),
             sorts=event_ms(torch, sorts, 10),
             kernel=event_ms(
-                torch, lambda: trace_pairs_pallas_soa(*k3_args), 50
+                torch, lambda: trace_pairs_pallas_soa(*k3_args), 50,
+                queued=True,
             ),
             resolve=event_ms(torch, resolve, 5),
             scatter=event_ms(torch, sample_scatter, 10),
         )
         k3_ms = sample_split["kernel"]
+        k3_host_paced_ms = event_ms(
+            torch, lambda: trace_pairs_pallas_soa(*k3_args), 50
+        )
         k3_plain_ms = event_ms(
             torch, lambda: trace_pairs_pallas_soa_plain(*k3_args), 1
+        )
+
+        def dirs_kernel_at(batch):
+            """The ray-bundle launch of one sample step of `batch`
+            samples: its items and its time."""
+            state = progressive_init(cfg, seed=1, device=dev)
+            _, calls = record_bundles(binned, lambda: progressive_step(
+                state, scene, cfg, batch_size=batch, prepared=prep_full
+            ))
+            args = calls[0]
+            longest = int(args[3].max())
+            equals_plain = None  # the plain walk is a Python loop: short spans only
+            if longest <= 8000:
+                got, got_m = trace_pairs_pallas_soa(*args)
+                want, want_m = trace_pairs_pallas_soa_plain(*args)
+                equals_plain = bool(torch.equal(got, want)) and bool(
+                    torch.equal(got_m, want_m))
+                if not equals_plain:
+                    fail(f"ray-bundle kernel at {batch} samples differs "
+                         f"from its plain version")
+            return dict(
+                samples=batch, pairs_walked=int(args[3].sum()),
+                longest_span=longest, equals_plain=equals_plain,
+                ms=event_ms(
+                    torch, lambda: trace_pairs_pallas_soa(*args), 50,
+                    queued=True,
+                ),
+                **item_stats(args[3], ITEM_PAIRS),
+            )
+
+        k3_other_batches = [dirs_kernel_at(b) for b in (16384, 262144)]
+        k3_d = k3_args[0].reshape(n_bundles, 3, 1024)
+        k3_demand = walk_demand(
+            torch, k3_d[:, 0], k3_d[:, 1], k3_d[:, 2], *k3_args[1:4]
         )
 
     for prof_view, per_ms, what in (
@@ -1309,20 +1567,30 @@ def main(argv) -> int:
         trim_dropped_fraction=trim_dropped,
         subset_kernel=dict(
             ms=k2_ms, coded_ms=k2_coded_ms, ms_again=k2_again_ms,
-            coded_ms_again=k2_coded_again_ms,
+            coded_ms_again=k2_coded_again_ms, host_paced_ms=k2_host_paced_ms,
             untrimmed_table_ms=k2_untrimmed_ms,
+            no_pairs_ms=k2_no_pairs_ms, longest_first_ms=k2_longest_first_ms,
+            launches_profile=k2_launches, **k2_demand,
             plain_ms=k2_plain_ms, bound_ms=k2_bound_ms, bound_by=k2_bound_by,
             bytes_ms=k2_bytes_ms, ops_ms=k2_ops_ms, bytes_moved=k2_bytes,
             operations=k2_ops, pairs_walked=k2_lens_sum,
+            share_of_bound=k2_bound_ms / k2_ms,
+            **item_stats(tlens[ids_l], ITEM_PAIRS),
+            untrimmed_table_items=item_stats(prep_full[2][ids_l], ITEM_PAIRS),
         ),
         sample_batch=SAMPLE_BATCH, sample_step_ms=sample_step_ms,
         samples_per_second=SAMPLE_BATCH / (sample_step_ms * 1e-3),
         sample_split_ms=sample_split,
         dirs_kernel=dict(
-            ms=k3_ms, plain_ms=k3_plain_ms, bound_ms=k3_bound_ms,
+            ms=k3_ms, host_paced_ms=k3_host_paced_ms, plain_ms=k3_plain_ms,
+            bound_ms=k3_bound_ms,
             bound_by=k3_bound_by, bytes_ms=k3_bytes_ms, ops_ms=k3_ops_ms,
             bytes_moved=k3_bytes, operations=k3_ops,
             pairs_walked=k3_lens_sum, longest_span=int(k3_lens.max()),
+            share_of_bound=k3_bound_ms / k3_ms,
+            **item_stats(k3_lens, ITEM_PAIRS),
+            **k3_demand,
+            other_batches=k3_other_batches,
         ),
         peak_memory_mb=torch.cuda.max_memory_allocated() / 2**20,
     )

@@ -536,6 +536,112 @@ def _walk_pairs(dx, dy, dz, pairs, row_start, row_len, deep: bool,
     return bt, blo, bhi, bcx, bcy, bcz
 
 
+# The item walk of the subset and ray-bundle modes, in plain pieces: the
+# kernel cuts a span into items of at most `ITEM_PAIRS` pairs, walks
+# each item keeping one key (ts, k) per ray, merges the items' keys by
+# minimum and reads the winner's column once. The same three steps in
+# eager ops, for the tests; no main path runs them.
+
+# Low word of a key: k mod 8 in bits 31..29, k in bits 28..0; all ones
+# means "no candidate", so the largest k must stay below 2^29 - 1.
+_KEY_K_BITS = 29
+MAX_KEYED_PAIR_CAP = (1 << _KEY_K_BITS) - 1
+_EMPTY_KEY = torch.iinfo(torch.int64).max
+# Pairs per work item: `kItemPairs` of csrc/pairs_kernel.cu.
+ITEM_PAIRS = 64
+
+
+def _winner_key(ts, k):
+    """int64 keys whose (signed) order is the order of (ts, k mod 8, k):
+    the order-preserving image of `ts`'s f32 bits in the high word
+    (-0.0 packed as +0.0, as `==` ties them), k mod 8 then k in the low
+    word. The kernel packs the same bits into an unsigned 64-bit word;
+    this one has the top bit flipped, so that int64's order is that
+    word's unsigned order and `_EMPTY_KEY` its all-ones."""
+    bits = ts.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    bits = torch.where(bits == 0x80000000, torch.zeros_like(bits), bits)
+    ordered = torch.where(
+        bits >= 0x80000000, 0xFFFFFFFF - bits, bits + 0x80000000
+    )
+    k = torch.as_tensor(k, dtype=torch.int64, device=ts.device)
+    low = ((k & 7) << _KEY_K_BITS) | k
+    return ((ordered - 0x80000000) << 32) | low
+
+
+def _walk_keys(dx, dy, dz, pairs, row_start, row_len, deep: bool,
+               k_first=0, k_count=None):
+    """The kernel's code-free walk over positions
+    [k_first, k_first + k_count) of every row's span (the whole span by
+    default): per ray the smallest key (`_winner_key`) among the
+    candidates that pass, `_EMPTY_KEY` where none does. [N, 1024] int64.
+    Reads max(row_len) back to the host."""
+    n_rows, n_cols = dx.shape[0], pairs.shape[1]
+    best = torch.full((n_rows, _RAYS), _EMPTY_KEY, dtype=torch.int64,
+                      device=pairs.device)
+    r_lodr, r_rc4 = (6, 7) if deep else (5, 6)
+    starts_l = row_start.long()
+    k_max = int(row_len.max()) if n_rows else 0
+    if k_count is not None:
+        k_max = min(k_max, k_first + k_count)
+    for k in range(k_first, k_max):
+        in_seg = (k < row_len)[:, None]
+        cols = pairs[:, torch.clamp_max(starts_l + k, n_cols - 1)]
+        cx, cy, cz = cols[0][:, None], cols[1][:, None], cols[2][:, None]
+        rc = cols[3][:, None]
+        lodr = cols[r_lodr][:, None]
+        rc4 = cols[r_rc4][:, None]
+        tca = dx * cx + dy * cy + dz * cz
+        t2 = tca * tca
+        disc = t2 + rc
+        c1p = torch.clamp_min(tca - lodr, 0.0)
+        ok = in_seg & (tca >= 0.0) & (c1p * c1p < t2 + rc4) & (disc >= 0.0)
+        ts = tca - torch.sqrt(torch.clamp_min(disc, 0.0))
+        key = torch.where(ok, _winner_key(ts, k), best)
+        best = torch.minimum(best, key)
+    return best
+
+
+def _winner_from_keys(keys, dx, dy, dz, pairs, row_start, deep: bool,
+                      codes: bool = True):
+    """The kernel's finish: the winner (bt, blo, bhi, bcx, bcy, bcz) of
+    `_walk_pairs` from merged keys — k from the key's low word, the
+    column pairs[:, start + k] read once per ray, ts recomputed from it
+    by the walk's own expression (so a -0.0 keeps its sign)."""
+    none = keys == _EMPTY_KEY
+    k = keys & ((1 << _KEY_K_BITS) - 1)
+    col = torch.clamp_max(row_start.long()[:, None] + k, pairs.shape[1] - 1)
+    zero = torch.zeros(keys.shape, dtype=torch.float32, device=keys.device)
+    pick = lambda r: torch.where(none, zero, pairs[r][col])
+    cx, cy, cz = pairs[0][col], pairs[1][col], pairs[2][col]
+    tca = dx * cx + dy * cy + dz * cz
+    t2 = tca * tca
+    disc = t2 + pairs[3][col]
+    ts = tca - torch.sqrt(torch.clamp_min(disc, 0.0))
+    bt = torch.where(none, torch.full_like(zero, _BIG), ts)
+    blo = pick(4) if codes else zero
+    bhi = pick(5) if codes and deep else zero
+    return bt, blo, bhi, pick(0), pick(1), pick(2)
+
+
+def _walk_pairs_split(dx, dy, dz, pairs, row_start, row_len, deep: bool,
+                      item_pairs: int, codes: bool = True):
+    """`_walk_pairs` the way the item kernels take it: every span cut
+    into items of `item_pairs` pairs, each walked on its own
+    (`_walk_keys`), the keys merged by minimum — in reverse order here:
+    any order gives the same keys — and the winner read back
+    (`_winner_from_keys`)."""
+    k_max = int(row_len.max()) if dx.shape[0] else 0
+    merged = torch.full(dx.shape, _EMPTY_KEY, dtype=torch.int64,
+                        device=pairs.device)
+    for k_first in reversed(range(0, k_max, item_pairs)):
+        merged = torch.minimum(merged, _walk_keys(
+            dx, dy, dz, pairs, row_start, row_len, deep, k_first, item_pairs
+        ))
+    return _winner_from_keys(
+        merged, dx, dy, dz, pairs, row_start, deep, codes=codes
+    )
+
+
 def _shade_rows(dx, dy, dz, winner, deep: bool, shade_only: bool = False):
     """The kernel's G-buffer epilogue: [N, C, 8, 128] rows (min_t,
     code_lo[, code_hi], pos3, nrm3) of the winner — or, with
@@ -697,9 +803,30 @@ def trace_pairs_fused_soa(
 trace_pairs_fused_soa.launches = 0
 
 
+def _check_keyed_pair_cap(pair_cap: int):
+    """The item modes merge on a key whose low word holds k in
+    `_KEY_K_BITS` bits, all ones meaning "no candidate"."""
+    if pair_cap > MAX_KEYED_PAIR_CAP:
+        raise ValueError(
+            f"pair table of {pair_cap} columns: the subset and ray-bundle "
+            f"modes take at most {MAX_KEYED_PAIR_CAP} (a span position must "
+            f"fit the {_KEY_K_BITS}-bit field of the merge key)"
+        )
+
+
+def _item_scratch(n_rows: int, dev):
+    """(keys [n_rows, 1024] int64, work [8 * n_rows + 8] int32) for one
+    item launch: sized by shapes only, written before read on the card."""
+    return (
+        torch.empty((n_rows, _RAYS), dtype=torch.int64, device=dev),
+        torch.empty((8 * n_rows + 8,), dtype=torch.int32, device=dev),
+    )
+
+
 def _launch_subset_kernel(cam, pairs, starts, lens, tile_ids,
                           cfg: RenderConfig, shade_only: bool):
-    """Enqueue the subset mode of `csrc/pairs_kernel.cu`."""
+    """Enqueue the subset mode of `csrc/pairs_kernel.cu` (its prologue
+    and its walk: one call, one count)."""
     K = tile_ids.shape[0]
     deep = cfg.max_depth >= 7
     n_out = 7 if shade_only else (9 if deep else 8)
@@ -709,11 +836,12 @@ def _launch_subset_kernel(cam, pairs, starts, lens, tile_ids,
     if K == 0:
         return out, metrics
     fn = kernels.entry_point(
-        "pairs_kernel", "sf_trace_pairs_fused_subset", 7, 7
+        "pairs_kernel", "sf_trace_pairs_fused_subset", 9, 7
     )
     kernels.enqueue(
         fn, "pairs_kernel (subset)",
-        (cam, pairs, starts, lens, tile_ids, out, metrics),
+        (cam, pairs, starts, lens, tile_ids, out, metrics,
+         *_item_scratch(K, dev)),
         (K, pairs.shape[1], cfg.tile_w.bit_length() - 1, cfg.tile_h,
          cfg.tiles_x, int(deep), int(shade_only)),
         dev,
@@ -744,9 +872,11 @@ def trace_pairs_fused_subset(
     Every id must lie in [0, T): that is the caller's contract (an id
     outside reads outside the tables). CUDA tensors launch the
     hand-written kernel (or raise); CPU tensors run the plain version.
-    K = 0 returns empty outputs without a launch.
-    `trace_pairs_fused_subset.launches` counts kernel launches."""
+    K = 0 returns empty outputs without a launch. A pair table wider
+    than `MAX_KEYED_PAIR_CAP` columns raises (the kernel's merge key).
+    `trace_pairs_fused_subset.launches` counts calls that launched."""
     _check_kernel_inputs(cam, pairs, starts, lens, cfg, tile_ids=tile_ids)
+    _check_keyed_pair_cap(pairs.shape[1])
     if pairs.device.type == "cuda":
         return _launch_subset_kernel(
             cam, pairs, starts, lens, tile_ids, cfg, shade_only
@@ -760,7 +890,8 @@ trace_pairs_fused_subset.launches = 0
 
 
 def _launch_dirs_kernel(dirs_k, pairs, starts, lens, cfg: RenderConfig):
-    """Enqueue the ray-bundle mode of `csrc/pairs_kernel.cu`."""
+    """Enqueue the ray-bundle mode of `csrc/pairs_kernel.cu` (its
+    prologue and its walk: one call, one count)."""
     B = dirs_k.shape[0]
     deep = cfg.max_depth >= 7
     dev = pairs.device
@@ -769,10 +900,12 @@ def _launch_dirs_kernel(dirs_k, pairs, starts, lens, cfg: RenderConfig):
     metrics = torch.empty((B, 1, 4), dtype=torch.int32, device=dev)
     if B == 0:
         return out, metrics
-    fn = kernels.entry_point("pairs_kernel", "sf_trace_pairs_dirs", 6, 3)
+    if dirs_k.data_ptr() % 16:
+        dirs_k = dirs_k.clone()  # the kernel loads four rays at a time
+    fn = kernels.entry_point("pairs_kernel", "sf_trace_pairs_dirs", 8, 3)
     kernels.enqueue(
         fn, "pairs_kernel (dirs)",
-        (dirs_k, pairs, starts, lens, out, metrics),
+        (dirs_k, pairs, starts, lens, out, metrics, *_item_scratch(B, dev)),
         (B, pairs.shape[1], int(deep)), dev,
     )
     trace_pairs_pallas_soa.launches += 1
@@ -797,7 +930,9 @@ def trace_pairs_pallas_soa(
 
     CUDA tensors launch the hand-written kernel (or raise); CPU tensors
     run the plain version. B = 0 returns empty outputs without a
-    launch. `trace_pairs_pallas_soa.launches` counts kernel launches."""
+    launch. A pair table wider than `MAX_KEYED_PAIR_CAP` columns raises
+    (the kernel's merge key). `trace_pairs_pallas_soa.launches` counts
+    calls that launched."""
     n_rows = 8 if cfg.max_depth >= 7 else 7
     B = dirs_k.shape[0] if isinstance(dirs_k, torch.Tensor) else None
     kernels.check_tensors(
@@ -809,6 +944,7 @@ def trace_pairs_pallas_soa(
         ],
         pairs, "pairs",
     )
+    _check_keyed_pair_cap(pairs.shape[1])
     if pairs.device.type == "cuda":
         return _launch_dirs_kernel(dirs_k, pairs, starts, lens, cfg)
     return trace_pairs_pallas_soa_plain(dirs_k, pairs, starts, lens, cfg)
