@@ -21,14 +21,15 @@ card. Phases, each printing one or more JSON lines:
    subset (`shade_only` and coded, on the trimmed table with the Sobol
    ids of step 0) and ray bundles (one 65,536-sample batch of
    `progressive_step`) — and their deep variants on a depth-8 dive pose;
-   the subset rows must equal the full-grid rows gathered at the ids;
-   both item modes bit for bit on constructed spans (exact ties across
-   work items, spans of one item and one pair more, empty, repeated ids);
-   then the traversal kernel on the bundles of a 1080p depth-6 pallas
-   frame, on the 64 Sobol bundles of a 65,536-sample step, at a depth-7
-   dive, in a constructed overflow case, and at frontiers past one
-   block's shared memory (codes, hit masks and all 8 metrics equal, t
-   within 1e-4);
+   the full grid bit for bit, and the subset rows equal to the full-grid
+   rows gathered at the ids; all three modes bit for bit on constructed
+   spans (exact ties across work items, spans of one item and one pair
+   more, empty, repeated ids); then the traversal kernel on the bundles
+   of a 1080p depth-6 pallas frame, on the 64 Sobol bundles of a
+   65,536-sample step, at a depth-7 dive, in a constructed overflow case,
+   at wider frontiers, and on a constructed exact tie that straddles a
+   work item's boundary (codes, hit masks, all 8 metrics and t equal bit
+   for bit);
 3. main paths, each with the launch counts set to 0 just before and read
    just after: the CLI's full-frame run to a PNG and a few
    `render_frame` calls with the camera moving (the same frame with the
@@ -41,9 +42,11 @@ card. Phases, each printing one or more JSON lines:
    CLI's sample unit on it, and the `fast` fallback once at 512x256
    depth 4 against `pallas`;
 4. times (CUDA events): ms/frame and ms/step with their splits, kernels
-   vs plain vs bound; and `torch.profiler` views of one frame, one tile
+   vs plain vs bound (each kernel timed queued behind a spin kernel, and
+   at the host's pace); and `torch.profiler` views of one frame, one tile
    step and one sample step (device busy time, idle share, launches,
-   top kernels); the pallas frame and its split, the pallas sample step;
+   top kernels); the pallas frame and its split, the traversal kernel's
+   node and ray launches apart, the pallas sample step;
 5. the `kernels` line, the card line, and the final `ok` line.
 
 Any failed check exits non-zero. Without a CUDA device, or outside the
@@ -278,6 +281,13 @@ def compare_rows(torch, out_k, out_p, deep: bool):
     )
 
 
+def bits_equal(torch, a, b) -> bool:
+    """Two float tensors equal bit for bit (the sign of a zero too)."""
+    return a.shape == b.shape and bool(torch.equal(
+        a.contiguous().view(torch.int32), b.contiguous().view(torch.int32)
+    ))
+
+
 def compare_shaded(torch, out_k, out_p):
     """Agreement of `shade_only` kernel rows with plain rows
     [K, 7, 8, 128] (min_t, pos3, nrm3): a hit is min_t < BIG / 2."""
@@ -384,14 +394,16 @@ def item_tables(torch, dev, item_pairs: int, deep: bool):
 
 
 def item_cases(torch, binned, dev):
-    """Hold the subset and the ray-bundle mode against their plain
-    versions on `item_tables`, bit for bit: every span under both modes,
-    shallow and deep, the subset with ids that repeat. Returns one
-    result per mode; any difference is listed in its `unequal`."""
+    """Hold the three modes of the pair kernel against their plain
+    versions on `item_tables`, bit for bit: every span (as the two
+    tiles' segments) under the full grid, under the subset mode with ids
+    that repeat and under the ray-bundle mode, shallow and deep. Returns
+    one result per mode; any difference is listed in its `unequal`."""
     bits = lambda x: x.contiguous().view(torch.int32)
     C = binned.ITEM_PAIRS
     results = {m: dict(item_pairs=C, cases=0, unequal=[], tie_column_code=[])
-               for m in ("pairs_kernel_subset", "pairs_kernel_dirs")}
+               for m in ("pairs_kernel", "pairs_kernel_subset",
+                         "pairs_kernel_dirs")}
     ids = torch.tensor([1, 0, 1, 1, 0], dtype=torch.int32, device=dev)
     # A copy's code is its column's number + 1 (first = 3). On the tie
     # column (row 0 is tile 1; its pixel column 0) the +x copy at 2C + 8
@@ -399,8 +411,8 @@ def item_cases(torch, binned, dev):
     copy_codes = {float(3 + k + 1) for k in (7, 9, C + 2, 2 * C + 8, 2 * C + 15)}
     winner_code = float(3 + 2 * C + 8 + 1)
 
-    def tie_column_codes(rows):
-        col = rows[0, 1].reshape(32, 32)[:, 0]
+    def tie_column_codes(rows, tile_row=0):
+        col = rows[tile_row, 1].reshape(32, 32)[:, 0]
         return sorted(copy_codes & set(col.tolist()))
 
     for deep in (False, True):
@@ -409,6 +421,18 @@ def item_cases(torch, binned, dev):
         dirs_k = torch.stack([dx, dy, dz], dim=1).reshape(-1, 3, 8, 128)
         for name, (starts, lens) in spans.items():
             label = f"{name}{', deep' if deep else ''}"
+            got, got_m = binned.trace_pairs_fused_soa(cam, pairs, starts, lens,
+                                                      cfg)
+            torch.cuda.synchronize()
+            want, want_m = binned.trace_pairs_fused_plain(cam, pairs, starts,
+                                                          lens, cfg)
+            res = results["pairs_kernel"]
+            res["cases"] += 1
+            if not (torch.equal(bits(got), bits(want))
+                    and torch.equal(got_m, want_m)):
+                res["unequal"].append(label)
+            if name == "ties across items":
+                res["tie_column_code"].append(tie_column_codes(got, 1))
             for shade_only in (True, False):
                 args = (cam, pairs, starts, lens, ids, cfg)
                 got, got_m = binned.trace_pairs_fused_subset(
@@ -442,6 +466,39 @@ def item_cases(torch, binned, dev):
         if any(codes != [winner_code] for codes in res["tie_column_code"]):
             res["unequal"].append("tie column: wrong winner")
     return results
+
+
+def straddle_inputs(torch, dev):
+    """The traversal kernel's arguments for one all-pass depth-2 bundle
+    (identity rotations) whose nine level-1 nodes all survive, so that
+    level-2 node (j, p) sits at queue position 10 + 9j + p: (5, 8) at 63
+    and (6, 0) at 64, in two work items of 64. The two are mirrored in
+    the plane x = 0 that holds every ray and every other node lies out
+    of the rays' way, so wherever a ray hits one it hits the other at
+    exactly the same t: the first in queue order, code 9 * (9 + 8) + 5 =
+    158, must win over code 9 * 9 + 6 = 87."""
+    import numpy as np
+
+    from sphereflake_tpu_torch.config import FractalParams, RenderConfig
+
+    templates = np.zeros((9, 3, 4), np.float32)
+    templates[:, :, :3] = np.eye(3, dtype=np.float32)
+    for j in range(9):
+        templates[j, :, 3] = (0.1 * (j - 5), -0.9, 0.0)
+    templates[0, :, 3], templates[8, :, 3] = (0.3, 0.9, 0.0), (-0.3, 0.9, 0.0)
+    templates[6, :, 3], templates[5, :, 3] = (-0.8, 0.9, 0.0), (0.8, 0.9, 0.0)
+    root = np.zeros((3, 4), np.float32)
+    root[:, :3] = np.eye(3, dtype=np.float32)
+    root[:, 3] = (0.0, 0.0, -5.0)
+    y = np.linspace(1.45, 1.75, 1024, dtype=np.float32)
+    d = np.stack([np.zeros_like(y), y, np.full_like(y, -5.0)])
+    d = (d / np.sqrt((d * d).sum(axis=0, keepdims=True))).astype(np.float32)
+    on = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    cfg = RenderConfig(width=32, height=32, max_depth=2, max_frontier=128,
+                       tile_h=32, tile_w=32, algorithm="pallas")
+    return (on(d.reshape(1, 3, 8, 128)), on(np.zeros((1, 4, 3), np.float32)),
+            on(root), on(templates), FractalParams.reference_default(dev),
+            cfg)
 
 
 def item_stats(lens, item_pairs: int):
@@ -481,6 +538,26 @@ def walk_demand(torch, dx, dy, dz, pairs, row_start, row_len):
                 ray_ok_share=int(ray_ok) / (1024 * walked))
 
 
+def queue_demand(torch, ptrav, dirs, pool, metrics, level_tab, cfg):
+    """What a traversal launch's data asks of its ray launch, counted in
+    plain ops on the node launch's own queues: of the (warp, node) tests
+    — a warp is 16 x 8 rays of a bundle, as in `walk_demand` — the share
+    in which some ray has d2 <= r^2, so that the warp goes past the early
+    out to the LOD gate and the square root."""
+    n = dirs.shape[0]
+    q_rows = pool.reshape(n, 5, -1)
+    qlen = metrics[:, 0, 0].long()
+    d = dirs.reshape(n, 3, 1024)
+    warp_pass = torch.zeros((), dtype=torch.int64, device=dirs.device)
+    for q in range(int(qlen.max())):
+        cx, cy, cz, cc, code = (q_rows[:, r, q, None] for r in range(5))
+        r2 = level_tab[1][ptrav._code_level(code)]
+        tca = d[:, 0] * cx + d[:, 1] * cy + d[:, 2] * cz
+        reach = (q < qlen)[:, None] & (cc - tca * tca <= r2)
+        warp_pass += reach.reshape(n, 4, 8, 2, 16).any(4).any(2).sum()
+    return dict(warp_pass_share=int(warp_pass) / (8 * int(qlen.sum())))
+
+
 def compare_traversal(torch, out_k, m_k, out_p, m_p):
     """Agreement of traversal-kernel outputs [T, 2, 8, 128] (t, code)
     and metrics [T, 1, 8] with the plain version's."""
@@ -496,6 +573,7 @@ def compare_traversal(torch, out_k, m_k, out_p, m_p):
         codes_equal=bool(torch.equal(code_k, code_p)),
         metrics_equal=bool(torch.equal(m_k, m_p)),
         miss_t_equal=bool(torch.equal(out_k[:, 0][~hit_k], out_p[:, 0][~hit_k])),
+        t_bits_equal=bits_equal(torch, out_k[:, 0], out_p[:, 0]),
         max_abs_err=float(diff.max()),
         queue_nodes=int(m[:, 0].sum()), longest_queue=int(m[:, 0].max()),
         overflow=int(m[:, 1].sum()), deepest_level=int(m[:, 2].max()),
@@ -620,6 +698,7 @@ def main(argv) -> int:
     if not out_k.is_cuda or out_k.shape != (cfg.tiles_x * cfg.tiles_y, 8, 8, 128):
         fail(f"kernel output {tuple(out_k.shape)} on {out_k.device}")
     shallow = compare_rows(torch, out_k, out_p, deep=False)
+    shallow["bits_equal"] = bits_equal(torch, out_k, out_p)
     n_tiles = cfg.tiles_x * cfg.tiles_y
     lens_sum = int(lens.sum())
     emit(
@@ -635,7 +714,8 @@ def main(argv) -> int:
     if not bool((m_k == m_p).all()):
         fail("kernel metrics differ from the plain version's")
     if (min(shallow["hit_agree"], shallow["code_agree"]) < AGREE_MIN
-            or shallow["max_abs_err"] > ABS_ERR_MAX):
+            or shallow["max_abs_err"] > ABS_ERR_MAX
+            or not shallow["bits_equal"]):
         fail(f"pairs_kernel (shallow) disagrees with its plain version: {shallow}")
 
     dcfg = RenderConfig(
@@ -649,6 +729,7 @@ def main(argv) -> int:
         torch.cuda.synchronize()
         dout_p, dm_p = trace_pairs_fused_plain(dcam, dpairs, dstarts, dlens, dcfg)
     deep = compare_rows(torch, dout_k, dout_p, deep=True)
+    deep["bits_equal"] = bits_equal(torch, dout_k, dout_p)
     hi_hits = float((dout_k[:, 2] >= 1.0).float().mean())
     emit(
         "kernel_vs_plain", kernel="pairs_kernel", variant="deep",
@@ -664,7 +745,7 @@ def main(argv) -> int:
         fail("deep variant did not produce hi-lane hits")
     if (min(deep["hit_agree"], deep["code_agree"]) < AGREE_MIN
             or deep["max_abs_err"] > ABS_ERR_MAX
-            or not bool((dm_k == dm_p).all())):
+            or not bool((dm_k == dm_p).all()) or not deep["bits_equal"]):
         fail(f"pairs_kernel (deep) disagrees with its plain version: {deep}")
 
     # -- subset mode at the frameless operating point: the trimmed table
@@ -830,20 +911,21 @@ def main(argv) -> int:
                 *args[:-1], dataclasses.replace(t_cfg, tile_batch=128)
             )
         res = compare_traversal(torch, out_kk, m_kk, out_pp, m_pp)
-        shared_bytes = ptrav.kernel_shared_bytes(t_cfg)
+        n_bundles = int(args[0].shape[0])
         emit(
             "kernel_vs_plain", kernel="traverse_kernel", variant=variant,
-            shape=dict(bundles=int(args[0].shape[0]),
+            shape=dict(bundles=n_bundles,
                        level_caps=ptrav.level_caps(t_cfg),
-                       shared_bytes=shared_bytes,
-                       working_set="shared memory"
-                       if shared_bytes <= ptrav.MAX_SHARED_BYTES
-                       else "device-memory workspace",
+                       queue_pool_mb=n_bundles * 4 * ptrav.queue_words(t_cfg)
+                       / 1e6,
+                       panels_mb_per_node_block=4 * ptrav.panel_words(t_cfg)
+                       / 1e6,
                        **shape),
             limits=dict(abs_err_max=ABS_ERR_MAX), **res,
         )
         if not (res["hit_equal"] and res["codes_equal"]
                 and res["metrics_equal"] and res["miss_t_equal"]
+                and res["t_bits_equal"]
                 and res["max_abs_err"] <= ABS_ERR_MAX):
             fail(f"traverse_kernel ({variant}) disagrees with its plain "
                  f"version: {res}")
@@ -887,9 +969,9 @@ def main(argv) -> int:
         fail(f"traversal cases off: {k4_frame}, {k4_dive}")
     if k4_over["overflow"] <= 0:
         fail("the constructed overflow case did not overflow")
-    # Frontiers past one block's shared memory: the same kernel body with
-    # its working set in a device-memory workspace. The frame does not
-    # overflow at 1,024, so a wider frontier must not change a bit of it.
+    # Wider frontiers: the same kernel body with larger scratch. The frame
+    # does not overflow at 1,024, so a wider frontier must not change a bit
+    # of it.
     # The Sobol bundles do overflow (1,024 pixels spread over some 32
     # tiles: the pyramid around their bounding cone takes in much of the
     # fractal) and still do at 16,384, where more nodes reach the deeper
@@ -901,7 +983,7 @@ def main(argv) -> int:
         dict(width=WIDTH, height=HEIGHT, depth=DEPTH, max_frontier=2048),
     )
     if not (torch.equal(k4w_out, k4_out) and torch.equal(k4w_m, k4_m)):
-        fail("the workspace variant changed the frame's traversal")
+        fail("a wider frontier changed the frame's traversal")
     _, _, k4_sobol_wide = traverse_check(
         "sobol bundles 1080p d6, max_frontier 16384",
         (*k4s_args[:-1], dataclasses.replace(pcfg, max_frontier=16384)),
@@ -909,6 +991,23 @@ def main(argv) -> int:
     )
     if k4_sobol_wide["queue_nodes"] <= k4_sobol["queue_nodes"]:
         fail("a wider frontier did not lengthen the Sobol bundles' queues")
+    # An exact tie across the ray launch's items: queue positions 63 and 64.
+    straddle_args = straddle_inputs(torch, dev)
+    _, _, k4_straddle = traverse_check(
+        "constructed tie at queue positions 63 and 64", straddle_args,
+        dict(depth=2, tied_positions=[63, 64], item_nodes=ptrav.ITEM_NODES),
+    )
+    st_codes = ptrav.trace_tiles_pallas_soa(*straddle_args)[0][0, 1]
+    k4_straddle["tie_winner_rays"] = int((st_codes == 158.0).sum())
+    k4_straddle["tie_loser_rays"] = int((st_codes == 87.0).sum())
+    emit("kernel_vs_plain", kernel="traverse_kernel",
+         variant="constructed tie at queue positions 63 and 64: winner",
+         tie_winner_code=158.0, tie_loser_code=87.0,
+         tie_winner_rays=k4_straddle["tie_winner_rays"],
+         tie_loser_rays=k4_straddle["tie_loser_rays"])
+    if (k4_straddle["tie_winner_rays"] < 500 or k4_straddle["tie_loser_rays"]
+            or k4_straddle["queue_nodes"] != 91):
+        fail(f"the straddling tie went wrong: {k4_straddle}")
 
     # ---- phase 3: the main path ------------------------------------
     def frame(i):
@@ -1255,10 +1354,12 @@ def main(argv) -> int:
         bin_ms = event_ms(
             torch, lambda: bin_nodes(nodes, minv, cfg, corners=corners), 5
         )
-        kernel_ms = event_ms(
-            torch,
-            lambda: trace_pairs_fused_soa(cam, pairs, starts, lens, cfg), 50,
-        )
+        # The kernel's own time, queued behind a spin kernel (see
+        # `event_ms`); `kernel_host_paced_ms` is the same call at the
+        # host's pace.
+        k1_call = lambda: trace_pairs_fused_soa(cam, pairs, starts, lens, cfg)
+        kernel_ms = event_ms(torch, k1_call, 50, queued=True)
+        kernel_host_paced_ms = event_ms(torch, k1_call, 50)
         plain_ms = event_ms(
             torch,
             lambda: trace_pairs_fused_plain(cam, pairs, starts, lens, cfg), 1,
@@ -1303,9 +1404,12 @@ def main(argv) -> int:
         rays_per_second=WIDTH * HEIGHT / (frame_ms * 1e-3),
         stages_ms=dict(expand=expand_ms, bin=bin_ms, kernel=kernel_ms,
                        untile=untile_ms, post=post_ms),
-        kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        kernel_ms=kernel_ms, kernel_host_paced_ms=kernel_host_paced_ms,
+        plain_ms=plain_ms, bound_ms=bound_ms,
         bound_by=bound_by, bytes_ms=bytes_ms, ops_ms=ops_ms,
         bytes_moved=bytes_moved, operations=ops,
+        share_of_bound=bound_ms / kernel_ms,
+        **item_stats(lens, ITEM_PAIRS),
         launches_per_frame=launches / frames_rendered,
         node_slots=int(nodes["cx"].numel()),
         peak_memory_mb=torch.cuda.max_memory_allocated() / 2**20,
@@ -1661,21 +1765,62 @@ def main(argv) -> int:
             untile=event_ms(torch, untile_planes, 5),
         )
         # The kernel alone, its level tables prepared (the wrapper's own
-        # plain ops are host-bound launches).
-        k4_ms = event_ms(
-            torch, lambda: ptrav._enqueue_traverse_kernel(*enqueue_args), 50
-        )
+        # plain ops are host-bound launches): queued behind a spin kernel,
+        # and at the host's pace; then its node and ray launches apart,
+        # each queued, on scratch of their own.
+        def traverse_times(t_args, t_expand, t_level_tab, t_cfg):
+            call = lambda: ptrav._enqueue_traverse_kernel(
+                t_args[0], t_args[1], t_args[2], t_expand, t_level_tab, t_cfg)
+            n = t_args[0].shape[0]
+            dirs = t_args[0]
+            if dirs.data_ptr() % 16:
+                dirs = dirs.clone()
+            scratch = ptrav._traverse_scratch(n, t_cfg, dev)
+            out = torch.empty((n, 2, 8, 128), dtype=torch.float32, device=dev)
+            met = torch.empty((n, 1, 8), dtype=torch.int32, device=dev)
+            nodes = lambda: ptrav._enqueue_nodes(
+                t_args[1], t_args[2], t_expand, t_level_tab, t_cfg, scratch,
+                met)
+            rays = lambda: ptrav._enqueue_rays(
+                dirs, t_level_tab, t_cfg, scratch, met, out)
+            nodes()
+            return dict(
+                ms=event_ms(torch, call, 50, queued=True),
+                host_paced_ms=event_ms(torch, call, 50),
+                nodes_ms=event_ms(torch, nodes, 50, queued=True),
+                rays_ms=event_ms(torch, rays, 50, queued=True),
+                node_blocks=int(scratch.panels.shape[0]),
+                **item_stats(met[:, 0, 0], ptrav.ITEM_NODES),
+                **queue_demand(torch, ptrav, dirs, scratch.pool, met,
+                               t_level_tab, t_cfg),
+            )
+
+        k4_times = traverse_times(k4_args, expand_tab, level_tab, pcfg)
+        k4_ms = k4_times["ms"]
         pallas_split["kernel"] = k4_ms
-        k4_sobol_ms = event_ms(
-            torch, lambda: ptrav._enqueue_traverse_kernel(
-                k4s_args[0], k4s_args[1], k4s_args[2], ks_expand,
-                ks_level_tab, pcfg,
-            ), 50,
-        )
-        k4_workspace_ms = event_ms(
+        k4s_times = traverse_times(k4s_args, ks_expand, ks_level_tab, pcfg)
+        k4_sobol_ms = k4s_times["ms"]
+        k4_wide_ms = event_ms(
             torch, lambda: ptrav._enqueue_traverse_kernel(
                 *enqueue_args[:-1], wide_cfg
-            ), 20,
+            ), 20, queued=True,
+        )
+        # Device memory of one pallas frame: what it allocates past what
+        # this script already holds, and the peak.
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        render_gbuffer(scene, pcfg, device=dev)
+        torch.cuda.synchronize()
+        pallas_peak = torch.cuda.max_memory_allocated()
+        pallas_memory = dict(
+            frame_peak_mb=(pallas_peak - held) / 2**20,
+            process_peak_mb=pallas_peak / 2**20,
+            queue_pool_mb=n_tiles * 4 * ptrav.queue_words(pcfg) / 2**20,
+            queue_pool_mb_at_2048=n_tiles * 4 * ptrav.queue_words(wide_cfg)
+            / 2**20,
+            panels_mb=k4_times["node_blocks"] * 4 * ptrav.panel_words(pcfg)
+            / 2**20,
         )
         k4_plain_ms = event_ms(
             torch, lambda: ptrav.trace_tiles_pallas_soa_plain(
@@ -1723,18 +1868,21 @@ def main(argv) -> int:
         rays_per_second=WIDTH * HEIGHT / (pallas_frame_ms * 1e-3),
         pallas_split_ms=pallas_split,
         traverse_kernel=dict(
-            ms=k4_ms, wrapper_ms=pallas_split["kernel_wrapper"],
-            workspace_variant_ms=k4_workspace_ms, plain_ms=k4_plain_ms, bound_ms=k4_bound_ms,
-            bound_by=k4_bound_by, bytes_ms=k4_bytes_ms, ops_ms=k4_ops_ms,
-            bytes_moved=k4_bytes, operations=k4_ops, queue_nodes=k4_qlen,
-            longest_queue=k4_frame["longest_queue"], bundles=n_tiles,
+            **k4_times, wrapper_ms=pallas_split["kernel_wrapper"],
+            wide_frontier_ms=k4_wide_ms, plain_ms=k4_plain_ms,
+            bound_ms=k4_bound_ms, bound_by=k4_bound_by, bytes_ms=k4_bytes_ms,
+            ops_ms=k4_ops_ms, bytes_moved=k4_bytes, operations=k4_ops,
+            queue_nodes=k4_qlen, longest_queue=k4_frame["longest_queue"],
+            bundles=n_tiles, share_of_bound=k4_bound_ms / k4_ms,
         ),
+        memory=pallas_memory,
         pallas_sample_step_ms=pallas_sample_step_ms,
         samples_per_second=SAMPLE_BATCH / (pallas_sample_step_ms * 1e-3),
         traverse_kernel_sobol=dict(
-            ms=k4_sobol_ms, bound_ms=k4s_bound_ms, bound_by=k4s_bound_by,
+            **k4s_times, bound_ms=k4s_bound_ms, bound_by=k4s_bound_by,
             bytes_moved=k4s_bytes, operations=k4s_ops, queue_nodes=k4s_qlen,
             longest_queue=k4_sobol["longest_queue"], bundles=64,
+            share_of_bound=k4s_bound_ms / k4_sobol_ms,
         ),
         peak_memory_mb=torch.cuda.max_memory_allocated() / 2**20,
     )
@@ -1780,7 +1928,7 @@ def main(argv) -> int:
             "launches": k4_path_launches,
             "max_abs_err": max(r["max_abs_err"] for r in (
                 k4_frame, k4_sobol, k4_dive, k4_over, k4_wide,
-                k4_sobol_wide)),
+                k4_sobol_wide, k4_straddle)),
             "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound_ms,
             "bound_by": k4_bound_by, "library_ms": None,
         },

@@ -174,7 +174,7 @@ class RenderConfig:
     tile_batch: int = 16  # tiles traced concurrently (per-tile paths)
     # "binned": global expansion + screen binning + the fused kernel
     #           (production).
-    # "pallas": the per-tile traversal kernel (one block per tile).
+    # "pallas": the per-tile traversal kernel (every tile on its own).
     # "fast":   plain-op levelwise traversal with tile-cone culling.
     # "strict" / "loose": the reference's parity traversals; they
     #           construct but do not render yet.

@@ -1,5 +1,7 @@
-// Per-bundle traversal of the 9-ary sphere tree: one block traces one bundle
-// of 1024 rays on its own, from the root frame down.
+// Per-bundle traversal of the 9-ary sphere tree: every bundle of 1024 rays
+// walks the tree on its own, from the root frame down, in two launches — a
+// node launch that builds each bundle's queue, and a ray launch that tests
+// the queues on the item walk of `item_walk.cuh`.
 //
 // Replaces the reference package's TPU kernel body
 // `sphereflake_tpu/ops/pallas_traversal.py:make_trace_kernel` (launched by
@@ -35,102 +37,132 @@
 //     the last level, 0, 0, 0, 0).
 //
 // Bound on this card: operations. A bundle reads 12 KB of directions and
-// writes 8 KB; its queue of a few hundred nodes costs each of 1024 rays about
-// 25 f32 operations per node. Neither phase touches device memory between the
-// loads at the start and the stores at the end.
+// writes 8 KB; its queue of a few dozen to a few thousand nodes costs each of
+// 1024 rays about 25 f32 operations per node, and the expansion about 55 per
+// child examined.
 //
-// Design: one block per bundle, 1024 threads. In phase 1 a thread is a child
-// lane (two rounds cover the 1152 lanes of a chunk): it composes the child's
-// centre in registers, culls it, and the block ranks the survivors in lane
-// order with a warp ballot + popcount and the per-warp totals in shared
-// memory; a survivor composes its rotation (not needed for the last level) and
-// writes frame and queue entry straight to its rank. The TPU body's one
-// [144,16]@[16,128] product and one-hot selection product have no counterpart
-// here. In phase 2 a thread is a ray and every thread reads the same queue
-// entry by broadcast. A bundle's working set is two 9-row rotation panels of
-// the widest level (ping-pong) and the 5-row queue of all levels (x, y, z,
-// |c|^2, code: a node's translation and code live only there), beside 1024
-// words of tables. Two instantiations of one body differ in where the working
-// set lives:
-//   - in shared memory (182,784 bytes with the tables at max_frontier 1024,
-//     depth 7, so one block per SM), one block per bundle — whenever it fits
-//     the 232,448 bytes a block may use;
-//   - else in a region of a workspace in device memory that the wrapper
-//     allocates, one region per block, the blocks (one per SM) striding over
-//     the bundles. __syncthreads() orders a block's own global writes and
-//     reads.
-// The wrapper picks by size; the arithmetic and the order are the same.
+// Design. One block of 1024 threads per bundle, with the bundle's working set
+// in shared memory sized for the level caps (162 KB at max_frontier 1024,
+// depth 6), would hold one block per SM and run a 1080p frame's 2,040
+// bundles in 16 serial waves, each mostly a chain of barriers over child
+// lanes that have no parent (a frame's mean queue is 52 nodes); and 64 Sobol
+// bundles would leave half the SMs idle. So the two phases are two launches:
+//   - node launch (`expand_kernel`): a persistent grid of small blocks, as
+//     many as fit on the card, each drawing bundles from a counter. A level of
+//     `live` parents enumerates only its 9 * live valid lanes: flat lane e
+//     lies in chunk c = e / 1152 and, with m = the chunk's live parents, is
+//     child j = (e mod 1152) / m of parent p = (e mod 1152) mod m — the same
+//     order as lane j * 128 + p over the valid lanes, so a level costs
+//     ceil(9 * live / kNodeThreads) rounds. A round ranks its survivors by a
+//     ballot and the per-warp totals (one barrier a round: the totals are
+//     double-buffered). The working set lives in device memory, where only
+//     the touched part is read and stays in L2: the bundle's queue region
+//     (x, y, z, |c|^2, code of every queued node, packed from position 0:
+//     level l's nodes follow level l - 1's) and, per resident block, two
+//     9-row rotation panels (ping-pong between levels). A node's level is not
+//     stored: a level-l code lies in [9^l, 2 * 9^l);
+//   - ray launch (`queue_prologue_kernel` + `walk_queue_kernel`): the item
+//     walk with the bundle as the row and its packed queue [0, qlen) as the
+//     span, qlen read on the device from the node launch's metrics. A stage
+//     of an item holds (x, y, z, |c|^2) and (r^2, lod^2 r, 4 r^2, code) per
+//     node; tca and d2 come first and the LOD gate, the square root and the
+//     update run only where some lane of the warp has d2 <= r^2. The merge
+//     key's low word is the queue position q: the smallest (ts, q), which is
+//     the first in queue order among equal t. The finish reads the winner's
+//     node once and recomputes ts by the walk's own expression.
+// On an NVIDIA H100 80GB HBM3 at 700 W (`chip_smoke.py`, `pallas_times`) the
+// frame's 2,040 bundles take about 0.13 ms (node launch 0.04, ray launch
+// 0.09; one block per bundle: 0.46) and the 64 Sobol bundles about 0.14
+// (0.06 + 0.08; 0.64). kNodeThreads is the best over both of the block sizes
+// 128, 256, 512 and 1024 timed there (PERF.md, Findings).
 //
 // Build without FMA contraction (-fmad=false) and without fast math, like
 // pairs_kernel.cu: the plain torch version rounds every multiply and add.
 
 #include <cuda_runtime.h>
 
+#include "item_walk.cuh"
+
 namespace {
 
-constexpr int kRays = 1024;       // rays of a bundle = threads of a block
+using namespace item_walk;
+
 constexpr int kLanes = 128;       // parents per chunk
 constexpr int kChildW = 9 * kLanes;
 constexpr int kMaxLevels = 8;     // max_depth <= 7 (f32 path codes stay exact)
+constexpr int kQueueRows = 5;     // x, y, z, |c|^2, code
+constexpr int kNodeThreads = 256;
+constexpr int kNodeWarps = kNodeThreads / 32;
+// At least 1024 threads of the node launch an SM: at most 64 registers.
+constexpr int kNodeMinBlocks = 1024 / kNodeThreads;
 constexpr float kBig = 3.0e38f;
 
-// GLOBAL_WS: the working set lives in `workspace` (one region per block) and
-// not in shared memory.
-template <bool GLOBAL_WS>
-__global__ void __launch_bounds__(kRays)
-trace_tiles_kernel(const float* __restrict__ dirs,       // [T, 3, 1024]
-                   const float* __restrict__ planes,     // [T, 4, 3]
-                   const float* __restrict__ root,       // [3, 4]
-                   const float* __restrict__ expand,     // [depth|1, 9, 12]
-                   const float* __restrict__ level_tab,  // [4, depth + 1]
-                   float* __restrict__ out,              // [T, 2, 1024]
-                   int* __restrict__ metrics,            // [T, 8]
-                   float* workspace,  // [gridDim.x, 18 * cap + 5 * sum(caps)]
-                   int n_bundles, int depth, int cap) {
-  extern __shared__ float smem[];
+// Level l's cap, min(round_up_128(9^l), cap), from pow9 = 9^l.
+__device__ __forceinline__ int level_cap(int pow9, int cap) {
+  return min(((pow9 + kLanes - 1) / kLanes) * kLanes, cap);
+}
+
+// The sum of the level caps: the length of a bundle's queue region.
+__device__ __forceinline__ int queue_cap(int n_levels, int cap) {
+  int pow9 = 1, sum = 0;
+  for (int l = 0; l < n_levels; ++l, pow9 *= 9) sum += level_cap(pow9, cap);
+  return sum;
+}
+
+// The level of a sentinel-prefixed path code (exact in f32 below 2 * 9^7).
+__device__ __forceinline__ int level_of(float code) {
+  int level = 0;
+  float pow9 = 9.0f;
+#pragma unroll
+  for (int l = 1; l < kMaxLevels; ++l) {
+    level += code >= pow9 ? 1 : 0;
+    pow9 *= 9.0f;
+  }
+  return level;
+}
+
+// Node launch: a persistent grid; block b begins with bundle b and then draws
+// bundles from `counter` (0 on entry). The queue pool is [T, 5, sum(caps)],
+// the panels [gridDim.x, 2, 9, cap].
+__global__ void __launch_bounds__(kNodeThreads, kNodeMinBlocks)
+expand_kernel(const float* __restrict__ planes,     // [T, 4, 3]
+              const float* __restrict__ root,       // [3, 4]
+              const float* __restrict__ expand,     // [depth|1, 9, 12]
+              const float* __restrict__ level_tab,  // [4, depth + 1]
+              float* pool, float* panels,
+              int* __restrict__ metrics,            // [T, 8]
+              int* __restrict__ counter, int n_bundles, int depth, int cap) {
+  __shared__ float s_lim2[kMaxLevels], s_neg2r[kMaxLevels];
+  __shared__ float s_expand[(kMaxLevels - 1) * 108];
+  __shared__ float s_planes[12];
+  __shared__ int s_warp[2][kNodeWarps];
+  __shared__ int s_next;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int n_levels = depth + 1;
+  const int qcap = queue_cap(n_levels, cap);
 
-  int caps[kMaxLevels];
-  int offs[kMaxLevels + 1];
-  {
-    int pow9 = 1;
-    offs[0] = 0;
-#pragma unroll
-    for (int l = 0; l < kMaxLevels; ++l) {
-      const int want = ((pow9 + kLanes - 1) / kLanes) * kLanes;
-      caps[l] = l < n_levels ? min(want, cap) : 0;
-      offs[l + 1] = offs[l] + caps[l];
-      if (l < kMaxLevels - 1) pow9 *= 9;
-    }
+  if (tid < n_levels) {
+    const float r_c = level_tab[tid];
+    const float lim = level_tab[3 * n_levels + tid] + 2.0f * r_c;
+    s_lim2[tid] = lim * lim;
+    s_neg2r[tid] = -2.0f * r_c;
   }
-  const int qtot = offs[kMaxLevels];
-  const int ws_words = 18 * cap + 5 * qtot;
+  for (int i = tid; i < depth * 108; i += kNodeThreads) s_expand[i] = expand[i];
+  float* const panel0 = panels + (size_t)blockIdx.x * 18 * cap;
+  float* const panel1 = panel0 + 9 * cap;
 
-  float* const ws =
-      GLOBAL_WS ? workspace + (size_t)blockIdx.x * ws_words : smem;
-  float* const panel0 = ws;
-  float* const panel1 = ws + 9 * cap;
-  float* const qx = ws + 18 * cap;
-  float* const qy = qx + qtot;
-  float* const qz = qy + qtot;
-  float* const qcc = qz + qtot;
-  float* const qcode = qcc + qtot;
-  float* const s_tab = GLOBAL_WS ? smem : smem + ws_words;  // [4][n_levels]
-  float* const s_expand = s_tab + 32;       // [depth][9][12], 756 words
-  float* const s_planes = s_expand + 756;   // 12 words
-  int* const s_warp = reinterpret_cast<int*>(s_planes + 12);  // 32 words
-  int* const s_live = s_warp + 32;          // 8 words
-
-  for (int i = tid; i < 4 * n_levels; i += kRays) s_tab[i] = level_tab[i];
-  for (int i = tid; i < depth * 108; i += kRays) s_expand[i] = expand[i];
-
-  // One bundle per block, or (GLOBAL_WS) the blocks stride over the bundles.
+  int n_round = 0;
+  int blk = blockIdx.x;
 #pragma unroll 1
-  for (int blk = blockIdx.x; blk < n_bundles; blk += gridDim.x) {
+  while (blk < n_bundles) {
+    float* const qx = pool + (size_t)blk * kQueueRows * qcap;
+    float* const qy = qx + qcap;
+    float* const qz = qy + qcap;
+    float* const qcc = qz + qcap;
+    float* const qcode = qcc + qcap;
     if (tid < 12) s_planes[tid] = planes[(size_t)blk * 12 + tid];
     if (tid == 0) {
       for (int a = 0; a < 3; ++a)
@@ -144,136 +176,101 @@ trace_tiles_kernel(const float* __restrict__ dirs,       // [T, 3, 1024]
     }
     __syncthreads();
 
-    // ---- phase 1: levelwise expansion into the queue (node work) ----------
-    // live, total, overflow are the same in every thread of the block.
+    // live, qlen, overflow are the same in every thread of the block.
     int live = 1, overflow = 0, max_level = 0, qlen = 0;
+    int pow9n = 9;  // 9^(level + 1)
 #pragma unroll 1
-    for (int level = 0; level < n_levels; ++level) {
+    for (int level = 0; level < n_levels; ++level, pow9n *= 9) {
       if (live > 0) max_level = level;
-      if (tid == 0) s_live[level] = live;
+      const int off_p = qlen;  // this level's nodes: [off_p, off_p + live)
       qlen += live;
       if (level == depth) break;
 
       const float* cur = (level & 1) ? panel1 : panel0;
       float* nxt = (level & 1) ? panel0 : panel1;
-      const int cap_n = caps[level + 1];
-      const int off_p = offs[level];
-      const int off_n = offs[level + 1];
-      const float r_c = s_tab[level + 1];
-      const float lod_rc = s_tab[3 * n_levels + level + 1];
-      const float lim = lod_rc + 2.0f * r_c;
-      const float lim2 = lim * lim;
-      const float neg2r = -2.0f * r_c;
+      const int cap_n = level_cap(pow9n, cap);
+      const int off_n = qlen;  // the children follow
+      const float lim2 = s_lim2[level + 1];
+      const float neg2r = s_neg2r[level + 1];
       const float* ex = s_expand + level * 108;
       const bool with_rot = level + 1 < depth;
-      const int n_chunks = (live + kLanes - 1) / kLanes;
+      const int n_lanes = 9 * live;
 
       int total = 0;
 #pragma unroll 1
-      for (int c = 0; c < n_chunks; ++c) {
-#pragma unroll 1
-        for (int base = 0; base < kChildW; base += kRays) {
-          const int i = base + tid;        // child lane of this chunk
-          const int j = i >> 7;            // child index 0..8
-          const int pidx = c * kLanes + (i & (kLanes - 1));
-          bool keep = false;
-          float cx = 0.0f, cy = 0.0f, cz = 0.0f, cc = 0.0f;
-          const float* e = ex + j * 12;
-          if (i < kChildW && pidx < live) {
-            const float sd0 = e[9], sd1 = e[10], sd2 = e[11];
-            cx = ((cur[0 * cap + pidx] * sd0 + cur[1 * cap + pidx] * sd1) +
-                  cur[2 * cap + pidx] * sd2) + qx[off_p + pidx];
-            cy = ((cur[3 * cap + pidx] * sd0 + cur[4 * cap + pidx] * sd1) +
-                  cur[5 * cap + pidx] * sd2) + qy[off_p + pidx];
-            cz = ((cur[6 * cap + pidx] * sd0 + cur[7 * cap + pidx] * sd1) +
-                  cur[8 * cap + pidx] * sd2) + qz[off_p + pidx];
-            cc = cx * cx + cy * cy + cz * cz;
-            keep = cc < lim2;
+      for (int base = 0; base < n_lanes; base += kNodeThreads) {
+        const int e_all = base + tid;
+        bool keep = false;
+        int j = 0, pidx = 0;
+        float cx = 0.0f, cy = 0.0f, cz = 0.0f, cc = 0.0f;
+        if (e_all < n_lanes) {
+          const int c = e_all / kChildW;
+          const int e = e_all - c * kChildW;
+          const int m = min(kLanes, live - c * kLanes);
+          j = e / m;
+          pidx = c * kLanes + (e - j * m);
+          const float* sd = ex + j * 12 + 9;
+          const int pq = off_p + pidx;
+          cx = ((cur[0 * cap + pidx] * sd[0] + cur[1 * cap + pidx] * sd[1]) +
+                cur[2 * cap + pidx] * sd[2]) + qx[pq];
+          cy = ((cur[3 * cap + pidx] * sd[0] + cur[4 * cap + pidx] * sd[1]) +
+                cur[5 * cap + pidx] * sd[2]) + qy[pq];
+          cz = ((cur[6 * cap + pidx] * sd[0] + cur[7 * cap + pidx] * sd[1]) +
+                cur[8 * cap + pidx] * sd[2]) + qz[pq];
+          cc = cx * cx + cy * cy + cz * cz;
+          keep = cc < lim2;
 #pragma unroll
-            for (int p = 0; p < 4; ++p) {
-              const float d_p = s_planes[3 * p] * cx +
-                                s_planes[3 * p + 1] * cy +
-                                s_planes[3 * p + 2] * cz;
-              keep = keep && (d_p >= neg2r);
-            }
+          for (int p = 0; p < 4; ++p) {
+            const float d_p = s_planes[3 * p] * cx +
+                              s_planes[3 * p + 1] * cy +
+                              s_planes[3 * p + 2] * cz;
+            keep = keep && (d_p >= neg2r);
           }
-          // Rank of a survivor among the survivors of the level so far, in
-          // lane order: ballot within the warp, totals of the warps before.
-          const unsigned ballot = __ballot_sync(0xffffffffu, keep);
-          if (lane == 0) s_warp[warp] = __popc(ballot);
-          __syncthreads();
-          int before = 0, round_total = 0;
+        }
+        // Rank of a survivor among the survivors of the level so far, in
+        // lane order: ballot within the warp, totals of the warps before.
+        const unsigned ballot = __ballot_sync(kFullMask, keep);
+        int* const sw = s_warp[n_round & 1];
+        ++n_round;
+        if (lane == 0) sw[warp] = __popc(ballot);
+        __syncthreads();
+        int before = 0, round_total = 0;
 #pragma unroll
-          for (int w = 0; w < 32; ++w) {
-            const int v = s_warp[w];
-            before += w < warp ? v : 0;
-            round_total += v;
-          }
-          const int rank =
-              total + before + __popc(ballot & ((1u << lane) - 1u));
-          if (keep && rank < cap_n) {
-            qx[off_n + rank] = cx;
-            qy[off_n + rank] = cy;
-            qz[off_n + rank] = cz;
-            qcc[off_n + rank] = cc;
-            qcode[off_n + rank] = 9.0f * qcode[off_p + pidx] + (float)j;
-            if (with_rot) {
+        for (int w = 0; w < kNodeWarps; ++w) {
+          const int v = sw[w];
+          before += w < warp ? v : 0;
+          round_total += v;
+        }
+        const int rank = total + before + __popc(ballot & ((1u << lane) - 1u));
+        if (keep && rank < cap_n) {
+          const int nq = off_n + rank;
+          qx[nq] = cx;
+          qy[nq] = cy;
+          qz[nq] = cz;
+          qcc[nq] = cc;
+          qcode[nq] = 9.0f * qcode[off_p + pidx] + (float)j;
+          if (with_rot) {
+            const float* e = ex + j * 12;
 #pragma unroll
-              for (int a = 0; a < 3; ++a) {
-                const float r0 = cur[(3 * a) * cap + pidx];
-                const float r1 = cur[(3 * a + 1) * cap + pidx];
-                const float r2 = cur[(3 * a + 2) * cap + pidx];
+            for (int a = 0; a < 3; ++a) {
+              const float r0 = cur[(3 * a) * cap + pidx];
+              const float r1 = cur[(3 * a + 1) * cap + pidx];
+              const float r2 = cur[(3 * a + 2) * cap + pidx];
 #pragma unroll
-                for (int b = 0; b < 3; ++b) {
-                  nxt[(3 * a + b) * cap + rank] =
-                      (r0 * e[b] + r1 * e[3 + b]) + r2 * e[6 + b];
-                }
+              for (int b = 0; b < 3; ++b) {
+                nxt[(3 * a + b) * cap + rank] =
+                    (r0 * e[b] + r1 * e[3 + b]) + r2 * e[6 + b];
               }
             }
           }
-          total += round_total;
-          __syncthreads();  // s_warp is reused; the writes are visible
         }
+        total += round_total;
       }
+      __syncthreads();  // the level's queue and panel are written
       live = min(total, cap_n);
       overflow += max(total - cap_n, 0);
     }
-    __syncthreads();
 
-    // ---- phase 2: every ray tests exactly the queued nodes (ray work) ------
-    const float* d = dirs + (size_t)blk * 3 * kRays;
-    const float dx = d[tid];
-    const float dy = d[kRays + tid];
-    const float dz = d[2 * kRays + tid];
-    float bt = kBig;
-    float bc = 0.0f;
-#pragma unroll 1
-    for (int level = 0; level < n_levels; ++level) {
-      const int n = s_live[level];
-      const int off = offs[level];
-      const float r2 = s_tab[n_levels + level];
-      const float lodr = s_tab[3 * n_levels + level];
-      const float four_r2 = 4.0f * r2;
-      for (int q = off; q < off + n; ++q) {
-        const float cx = qx[q];
-        const float cy = qy[q];
-        const float cz = qz[q];
-        const float tca = dx * cx + dy * cy + dz * cz;
-        const float d2 = qcc[q] - tca * tca;
-        const float c1 = tca - lodr;
-        const bool lod_ok = (c1 < 0.0f) || (c1 * c1 < four_r2 - d2);
-        const bool ok = (tca >= 0.0f) && lod_ok && (d2 <= r2);
-        const float ts = tca - sqrtf(fmaxf(r2 - d2, 0.0f));
-        if (ok && ts < bt) {
-          bt = ts;
-          bc = qcode[q];
-        }
-      }
-    }
-
-    float* o = out + (size_t)blk * 2 * kRays;
-    o[tid] = bt;
-    o[kRays + tid] = bc;
     if (tid < 8) {
       const int m = tid == 0 ? qlen
                   : tid == 1 ? overflow
@@ -282,41 +279,247 @@ trace_tiles_kernel(const float* __restrict__ dirs,       // [T, 3, 1024]
                              : 0;
       metrics[(size_t)blk * 8 + tid] = m;
     }
-    __syncthreads();  // the next bundle reuses planes, panels and queue
+    // The next bundle. The barriers keep planes, panels and s_next alive
+    // until every thread is done with them.
+    if (tid == 0) s_next = gridDim.x + atomicAdd(counter, 1);
+    __syncthreads();
+    blk = s_next;
+    __syncthreads();
+  }
+}
+
+// Ray launch 1 of 2: block 0 sums the items of the queues [0, qlen) over the
+// bundles (`scan_items`); blocks 1..: one warp per bundle clears the merge
+// keys and arrival counts of a queue of several items.
+__global__ void __launch_bounds__(kPrologueThreads)
+queue_prologue_kernel(const int* __restrict__ metrics, int n_rows,
+                      int4* __restrict__ rowinfo, int* __restrict__ arrived,
+                      int* __restrict__ counter,
+                      unsigned long long* __restrict__ keys, int walk_blocks) {
+  auto span = [&](int r) { return make_int4(0, 0, metrics[(size_t)r * 8], r); };
+  if (blockIdx.x == 0) {
+    scan_items(span, n_rows, rowinfo, counter, walk_blocks);
+    return;
+  }
+  const int r = (blockIdx.x - 1) * (kPrologueThreads / 32) + (threadIdx.x >> 5);
+  if (r >= n_rows) return;
+  clear_row(r, span(r).z, keys, arrived, threadIdx.x & 31);
+}
+
+// Ray launch 2 of 2: a fixed grid of blocks that walk items of the queues
+// until none is left. out [T, 2, 1024] = (t, code).
+__global__ void __launch_bounds__(kItemThreads, kBlocksPerSm)
+walk_queue_kernel(const float* __restrict__ dirs,       // [T, 3, 1024]
+                  const float* __restrict__ pool,       // [T, 5, sum(caps)]
+                  const float* __restrict__ level_tab,  // [4, depth + 1]
+                  const int4* __restrict__ rowinfo, int* __restrict__ arrived,
+                  int* __restrict__ counter,
+                  unsigned long long* __restrict__ keys,
+                  float* __restrict__ out, int n_rows, int depth, int cap) {
+  constexpr int RPT = kRaysPerThread;
+  // The staged item, 32 bytes a node: (x, y, z, |c|^2), (r^2, lodr, 4r^2, code).
+  __shared__ float4 s_node[kItemLen][2];
+  __shared__ float s_r2[kMaxLevels], s_lodr[kMaxLevels];
+  __shared__ int4 s_info;
+  __shared__ int s_row, s_next, s_last;
+
+  const int tid = threadIdx.x;
+  const int n_levels = depth + 1;
+  const int qcap = queue_cap(n_levels, cap);
+  if (tid < n_levels) {
+    s_r2[tid] = level_tab[n_levels + tid];
+    s_lodr[tid] = level_tab[3 * n_levels + tid];
+  }
+  const int total = rowinfo[n_rows].x;
+  const int part_f0 = part_first_ray(tid);
+
+  int work = blockIdx.x;
+  while (work < total * kRowParts) {
+    const int item = work / kRowParts;
+    const int part = work % kRowParts;
+    if (tid < 32) find_row(rowinfo, n_rows, item, tid, &s_info, &s_row);
+    __syncthreads();
+    const int row = s_row;
+    const int len = s_info.z;
+    const int f0 = part * (kItemThreads * RPT) + part_f0;
+    const int base = (item - s_info.x) * kItemLen;
+    const int cnt = max(0, min(kItemLen, len - base));
+    const float* q = pool + (size_t)row * kQueueRows * qcap;
+
+    // Stage the item: a thread per node.
+    for (int c = tid; c < cnt; c += kItemThreads) {
+      const int n = base + c;
+      const float code = q[4 * qcap + n];
+      const int level = level_of(code);
+      const float r2 = s_r2[level];
+      s_node[c][0] = make_float4(q[n], q[qcap + n], q[2 * qcap + n],
+                                 q[3 * qcap + n]);
+      s_node[c][1] = make_float4(r2, s_lodr[level], 4.0f * r2, code);
+    }
+
+    float dx[RPT], dy[RPT], dz[RPT];
+    {
+      const float* d = dirs + (size_t)row * 3 * kRays + f0;
+      const float4 x = *reinterpret_cast<const float4*>(d);
+      const float4 y = *reinterpret_cast<const float4*>(d + kRays);
+      const float4 z = *reinterpret_cast<const float4*>(d + 2 * kRays);
+      dx[0] = x.x; dx[1] = x.y; dx[2] = x.z; dx[3] = x.w;
+      dy[0] = y.x; dy[1] = y.y; dy[2] = y.z; dy[3] = y.w;
+      dz[0] = z.x; dz[1] = z.y; dz[2] = z.z; dz[3] = z.w;
+    }
+    __syncthreads();  // the item is staged
+
+    // The walk: per ray the best (ts, queue position) so far. Positions only
+    // grow within an item, so strict < keeps the first of equal t.
+    float bt[RPT];
+    unsigned bl[RPT];
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      bt[i] = kBig;
+      bl[i] = kNoCandidate;
+    }
+    const float4* node = &s_node[0][0];
+#pragma unroll 4
+    for (int j = 0; j < cnt; ++j, node += 2) {
+      const float4 g = node[0];
+      const float r2 = node[1].x;
+      float tca[RPT], d2[RPT];
+      // The warp goes on where some ray passes within the sphere's radius of
+      // its centre: the smallest d2 is <= r^2.
+      float near = kBig;
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+        tca[i] = dx[i] * g.x + dy[i] * g.y + dz[i] * g.z;
+        d2[i] = g.w - tca[i] * tca[i];
+        near = fminf(near, d2[i]);
+      }
+      if (__any_sync(kFullMask, near <= r2)) {
+        const float4 h = node[1];
+        const unsigned pos = (unsigned)(base + j);
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) {
+          const float c1 = tca[i] - h.y;
+          const bool lod_ok = (c1 < 0.0f) | (c1 * c1 < h.z - d2[i]);
+          const bool ok = (tca[i] >= 0.0f) & lod_ok & (d2[i] <= h.x);
+          const float ts = tca[i] - sqrtf(fmaxf(h.x - d2[i], 0.0f));
+          const bool better = ok & (ts < bt[i]);
+          bt[i] = better ? ts : bt[i];
+          bl[i] = better ? pos : bl[i];
+        }
+      }
+    }
+
+    const int n_items = items_of(len);
+    const bool finish =
+        n_items == 1 ||
+        merge_keys(keys + (size_t)row * kRays + f0, bt, bl,
+                   arrived + row * kRowParts + part, n_items, &s_last);
+
+    if (finish) {
+      // The winner's node, once per ray; ts recomputed by the walk's own
+      // expression (the same bits).
+      float ot[RPT], oc[RPT];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+        ot[i] = kBig;
+        oc[i] = 0.0f;
+        if (bl[i] != kNoCandidate) {
+          const int n = (int)bl[i];
+          const float cx = q[n], cy = q[qcap + n], cz = q[2 * qcap + n];
+          const float cc = q[3 * qcap + n];
+          const float code = q[4 * qcap + n];
+          const float r2 = s_r2[level_of(code)];
+          const float tca = dx[i] * cx + dy[i] * cy + dz[i] * cz;
+          const float d2 = cc - tca * tca;
+          ot[i] = tca - sqrtf(fmaxf(r2 - d2, 0.0f));
+          oc[i] = code;
+        }
+      }
+      float* op = out + (size_t)row * 2 * kRays + f0;
+      *reinterpret_cast<float4*>(op) = make_float4(ot[0], ot[1], ot[2], ot[3]);
+      *reinterpret_cast<float4*>(op + kRays) =
+          make_float4(oc[0], oc[1], oc[2], oc[3]);
+    }
+
+    // Next item, drawn only now (see pairs_kernel.cu). The barriers keep the
+    // staged item and s_info alive until every thread is done with them.
+    if (tid == 0) s_next = atomicAdd(counter, 1);
+    __syncthreads();
+    work = s_next;
+    __syncthreads();
   }
 }
 
 }  // namespace
 
-// Plain C entry point: enqueues one launch on `stream` and returns the CUDA
-// error code (0 on success). It neither synchronises nor allocates; every
-// pointer is device memory owned by the caller. `cap` is the widest level cap.
-// With n_blocks == 0 the working set lives in shared memory, one block per
-// bundle, and `shared_bytes` = 4 * (18 * cap + 5 * sum(caps) + 1024); with
-// n_blocks > 0 it lives in `workspace` ([n_blocks, 18 * cap + 5 * sum(caps)]
-// floats), n_blocks blocks stride over the bundles, and `shared_bytes` = 4096
-// holds the tables.
-extern "C" int sf_trace_tiles(const float* dirs, const float* planes,
-                              const float* root, const float* expand,
-                              const float* level_tab, float* out, int* metrics,
-                              float* workspace, int n_bundles, int depth,
-                              int cap, int shared_bytes, int n_blocks,
-                              void* stream) {
+// Plain C entry points: each enqueues on `stream` and returns the CUDA error
+// code (0 on success). None synchronises or allocates; every pointer is
+// device memory owned by the caller. `cap` is the widest level cap.
+
+// Resident blocks of the node launch on the current device (> 0), or minus a
+// CUDA error code: the wrapper sizes the panels by it, at every launch.
+extern "C" int sf_trace_tiles_node_slots(void) {
+  int card = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&card);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, card);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, expand_kernel, kNodeThreads, 0);
+  }
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  return sms * per_sm;
+}
+
+// Node launch: pool [n_bundles, 5, sum(caps)] (the queues), panels
+// [n_blocks, 2, 9, cap], metrics [n_bundles, 8]; `counter` one int of
+// scratch. n_blocks <= sf_trace_tiles_node_slots().
+extern "C" int sf_trace_tiles_nodes(const float* planes, const float* root,
+                                    const float* expand,
+                                    const float* level_tab, float* pool,
+                                    float* panels, int* metrics, int* counter,
+                                    int n_bundles, int depth, int cap,
+                                    int n_blocks, void* stream) {
+  if (n_bundles <= 0) return 0;
+  if (depth < 0 || depth >= kMaxLevels || n_blocks <= 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(counter, 0, sizeof(int), s);
+  if (err != cudaSuccess) return (int)err;
+  expand_kernel<<<n_blocks, kNodeThreads, 0, s>>>(
+      planes, root, expand, level_tab, pool, panels, metrics, counter,
+      n_bundles, depth, cap);
+  return (int)cudaGetLastError();
+}
+
+// Ray launch: dirs [n_bundles, 3, 1024] (16-byte aligned), the node launch's
+// pool and metrics; out [n_bundles, 2, 1024]. Scratch: keys
+// [n_bundles, 1024] 64-bit, work [8 * n_bundles + 8] int32; neither needs a
+// value.
+extern "C" int sf_trace_tiles_rays(const float* dirs, const float* pool,
+                                   const float* level_tab, const int* metrics,
+                                   float* out, unsigned long long* keys,
+                                   int* work, int n_bundles, int depth,
+                                   int cap, void* stream) {
   if (n_bundles <= 0) return 0;
   if (depth < 0 || depth >= kMaxLevels) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_blocks > 0) {
-    trace_tiles_kernel<true><<<n_blocks, kRays, shared_bytes, s>>>(
-        dirs, planes, root, expand, level_tab, out, metrics, workspace,
-        n_bundles, depth, cap);
-    return (int)cudaGetLastError();
-  }
-  cudaError_t err = cudaFuncSetAttribute(
-      trace_tiles_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      shared_bytes);
-  if (err != cudaSuccess) return (int)err;
-  trace_tiles_kernel<false><<<n_bundles, kRays, shared_bytes, s>>>(
-      dirs, planes, root, expand, level_tab, out, metrics, nullptr, n_bundles,
+  int4* rowinfo = reinterpret_cast<int4*>(work);
+  int* arrived = work + 4 * (n_bundles + 1);
+  int* counter = arrived + kRowParts * n_bundles;
+  int grid = 0;
+  const cudaError_t asked = walk_grid(&grid);
+  if (asked != cudaSuccess) return (int)asked;
+  const int rows_per_block = kPrologueThreads / 32;
+  const int fill_blocks = (n_bundles + rows_per_block - 1) / rows_per_block;
+  queue_prologue_kernel<<<1 + fill_blocks, kPrologueThreads, 0, s>>>(
+      metrics, n_bundles, rowinfo, arrived, counter, keys, grid);
+  int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  walk_queue_kernel<<<grid, kItemThreads, 0, s>>>(
+      dirs, pool, level_tab, rowinfo, arrived, counter, keys, out, n_bundles,
       depth, cap);
   return (int)cudaGetLastError();
 }

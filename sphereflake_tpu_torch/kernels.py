@@ -2,9 +2,10 @@
 
 Every `csrc/*.cu` file has a plain C interface. It is compiled with
 `nvcc` for sm_90a into its own shared library at first use and loaded
-with `ctypes` — no torch headers, so a build takes seconds. Libraries
-go into a build directory keyed by a hash of the source and the flags,
-so an edited source is rebuilt and an unchanged one is reused.
+with `ctypes` — no torch headers, so a build takes seconds. Sources may
+include the `csrc/*.cuh` headers. Libraries go into a build directory
+keyed by a hash of the source, the headers and the flags, so an edited
+source or header is rebuilt and an unchanged one is reused.
 
 Nothing here runs when the package is imported: machines without a
 CUDA toolkit import every module and run the kernels' plain torch
@@ -62,13 +63,27 @@ def find_nvcc() -> str:
     )
 
 
+def _headers() -> list[str]:
+    """The `csrc/*.cuh` headers, which any source may include."""
+    return sorted(
+        os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR)
+        if f.endswith(".cuh")
+    )
+
+
 def _lib_path(name: str, extra_flags=()) -> tuple[str, str]:
+    """(source, library path): the library's name carries a hash of the
+    source, every header and the flags, so that an edit to any of them
+    builds a new library."""
     src = os.path.join(CSRC_DIR, SOURCES[name])
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(
-            f.read() + " ".join(NVCC_FLAGS + tuple(extra_flags)).encode()
-        ).hexdigest()[:16]
-    return src, os.path.join(build_dir(), f"lib{name}_{digest}.so")
+    digest = hashlib.sha256()
+    for path in [src, *_headers()]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    digest.update(" ".join(NVCC_FLAGS + tuple(extra_flags)).encode())
+    return src, os.path.join(
+        build_dir(), f"lib{name}_{digest.hexdigest()[:16]}.so"
+    )
 
 
 def build(names=None, extra_flags=(), verbose: bool = False) -> dict[str, str]:

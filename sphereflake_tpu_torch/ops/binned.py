@@ -15,9 +15,10 @@ walked once per frame:
    dropped by a corner-ray dot cull; (node, tile) pairs are laid out by
    one packed-key sort into dense per-tile segments of a 7|8-row
    payload (`node_rows`).
-3. **Fused kernel** (`trace_pairs_fused_soa`): one block per tile; the
-   kernel derives its ray directions from 16 camera scalars, walks the
-   tile's segment and shades the winner to (min_t, position, normal).
+3. **Fused kernel** (`trace_pairs_fused_soa`): one row per tile, cut
+   into work items of `ITEM_PAIRS` pairs; the kernel derives its ray
+   directions from 16 camera scalars, walks the tile's segment and
+   shades the winner to (min_t, position, normal).
    The kernel is hand-written CUDA (`csrc/pairs_kernel.cu`); its plain
    torch version (`trace_pairs_fused_plain`) lives here beside it.
    Two more launch modes of the same kernel serve the frameless
@@ -536,7 +537,7 @@ def _walk_pairs(dx, dy, dz, pairs, row_start, row_len, deep: bool,
     return bt, blo, bhi, bcx, bcy, bcz
 
 
-# The item walk of the subset and ray-bundle modes, in plain pieces: the
+# The item walk of the pair kernel (all three modes), in plain pieces: the
 # kernel cuts a span into items of at most `ITEM_PAIRS` pairs, walks
 # each item keeping one key (ts, k) per ray, merges the items' keys by
 # minimum and reads the winner's column once. The same three steps in
@@ -547,25 +548,33 @@ def _walk_pairs(dx, dy, dz, pairs, row_start, row_len, deep: bool,
 _KEY_K_BITS = 29
 MAX_KEYED_PAIR_CAP = (1 << _KEY_K_BITS) - 1
 _EMPTY_KEY = torch.iinfo(torch.int64).max
-# Pairs per work item: `kItemPairs` of csrc/pairs_kernel.cu.
+# Pairs per work item: `kItemLen` of csrc/item_walk.cuh (the traversal
+# kernel's items are as long).
 ITEM_PAIRS = 64
 
 
-def _winner_key(ts, k):
-    """int64 keys whose (signed) order is the order of (ts, k mod 8, k):
-    the order-preserving image of `ts`'s f32 bits in the high word
-    (-0.0 packed as +0.0, as `==` ties them), k mod 8 then k in the low
-    word. The kernel packs the same bits into an unsigned 64-bit word;
-    this one has the top bit flipped, so that int64's order is that
-    word's unsigned order and `_EMPTY_KEY` its all-ones."""
+def _ordered_key(ts, low):
+    """int64 keys whose (signed) order is the order of (ts, low), `low`
+    a tie-break word below 2^32 - 1: the order-preserving image of
+    `ts`'s f32 bits in the high word (-0.0 packed as +0.0, as `==` ties
+    them), `low` in the low word. The kernels (`csrc/item_walk.cuh:
+    pack_key`) pack the same bits into an unsigned 64-bit word; this
+    one has the top bit flipped, so that int64's order is that word's
+    unsigned order and `_EMPTY_KEY` its all-ones."""
     bits = ts.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
     bits = torch.where(bits == 0x80000000, torch.zeros_like(bits), bits)
     ordered = torch.where(
         bits >= 0x80000000, 0xFFFFFFFF - bits, bits + 0x80000000
     )
-    k = torch.as_tensor(k, dtype=torch.int64, device=ts.device)
-    low = ((k & 7) << _KEY_K_BITS) | k
+    low = torch.as_tensor(low, dtype=torch.int64, device=ts.device)
     return ((ordered - 0x80000000) << 32) | low
+
+
+def _winner_key(ts, k):
+    """The pair kernel's key (`_ordered_key`): its order is the order of
+    (ts, k mod 8, k), with k mod 8 then k in the low word."""
+    k = torch.as_tensor(k, dtype=torch.int64, device=ts.device)
+    return _ordered_key(ts, ((k & 7) << _KEY_K_BITS) | k)
 
 
 def _walk_keys(dx, dy, dz, pairs, row_start, row_len, deep: bool,
@@ -757,8 +766,9 @@ def _check_kernel_inputs(cam, pairs, starts, lens, cfg: RenderConfig,
 
 
 def _launch_pairs_kernel(cam, pairs, starts, lens, cfg: RenderConfig):
-    """Enqueue the full-grid mode of `csrc/pairs_kernel.cu`."""
-    fn = kernels.entry_point("pairs_kernel", "sf_trace_pairs_fused", 6, 6)
+    """Enqueue the full-grid mode of `csrc/pairs_kernel.cu` (its
+    prologue and its walk: one call, one count)."""
+    fn = kernels.entry_point("pairs_kernel", "sf_trace_pairs_fused", 8, 6)
     T = cfg.tiles_y * cfg.tiles_x
     deep = cfg.max_depth >= 7
     dev = pairs.device
@@ -766,7 +776,8 @@ def _launch_pairs_kernel(cam, pairs, starts, lens, cfg: RenderConfig):
                       device=dev)
     metrics = torch.empty((T, 1, 4), dtype=torch.int32, device=dev)
     kernels.enqueue(
-        fn, "pairs_kernel (full)", (cam, pairs, starts, lens, out, metrics),
+        fn, "pairs_kernel (full)",
+        (cam, pairs, starts, lens, out, metrics, *_item_scratch(T, dev)),
         (T, pairs.shape[1], cfg.tile_w.bit_length() - 1, cfg.tile_h,
          cfg.tiles_x, int(deep)),
         dev,
@@ -784,17 +795,19 @@ def trace_pairs_fused_soa(
     cfg: RenderConfig,
 ):
     """The fused production kernel: raygen + ray tests + G-buffer
-    shading in ONE launch (no ray-direction array ever exists in device
-    memory). Returns (out [T, C, 8, 128], metrics [T, 1, 4]) with rows
+    shading in ONE walk launch behind a small prologue launch (no
+    ray-direction array ever exists in device memory). Returns (out [T, C, 8, 128], metrics [T, 1, 4]) with rows
     (min_t, code_lo[, code_hi], px, py, pz, nx, ny, nz): C = 9 when
     cfg.max_depth >= 7, else 8. min_t is BIG at sky; pos/nrm are zeros
     at sky. metrics column 0 is the tile's segment length.
 
     CUDA tensors launch the hand-written kernel (or raise); CPU tensors
     run the plain version. Launches on the current stream, never
-    synchronises. `trace_pairs_fused_soa.launches` counts kernel
-    launches."""
+    synchronises. A pair table wider than `MAX_KEYED_PAIR_CAP` columns
+    raises (the kernel's merge key). `trace_pairs_fused_soa.launches`
+    counts calls that launched."""
     _check_kernel_inputs(cam, pairs, starts, lens, cfg)
+    _check_keyed_pair_cap(pairs.shape[1])
     if pairs.device.type == "cuda":
         return _launch_pairs_kernel(cam, pairs, starts, lens, cfg)
     return trace_pairs_fused_plain(cam, pairs, starts, lens, cfg)
@@ -804,12 +817,12 @@ trace_pairs_fused_soa.launches = 0
 
 
 def _check_keyed_pair_cap(pair_cap: int):
-    """The item modes merge on a key whose low word holds k in
+    """The kernel merges on a key whose low word holds k in
     `_KEY_K_BITS` bits, all ones meaning "no candidate"."""
     if pair_cap > MAX_KEYED_PAIR_CAP:
         raise ValueError(
-            f"pair table of {pair_cap} columns: the subset and ray-bundle "
-            f"modes take at most {MAX_KEYED_PAIR_CAP} (a span position must "
+            f"pair table of {pair_cap} columns: the pair kernel takes at "
+            f"most {MAX_KEYED_PAIR_CAP} (a span position must "
             f"fit the {_KEY_K_BITS}-bit field of the merge key)"
         )
 
@@ -1033,7 +1046,7 @@ def camera_vector(scene, cfg: RenderConfig, frame=None):
 
 def binned_gbuffer(cfg: RenderConfig, frame_w, frame_h, scene, offs):
     """The production forward pass of one block: expansion + binning in
-    plain torch, then ONE fused kernel launch computes raygen + binned
+    plain torch, then ONE fused kernel call computes raygen + binned
     ray tests + G-buffer shading. Forward only (the reference's custom
     JVP — a recompute in plain ops — is a later slice).
 

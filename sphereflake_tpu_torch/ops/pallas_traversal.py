@@ -1,7 +1,7 @@
 """The per-tile traversal kernel and the path-code resolve.
 
 Counterpart of the reference package's `ops/pallas_traversal.py`. One
-kernel launch traces every 1024-ray bundle (a screen tile, or a bundle
+call of the kernel traces every 1024-ray bundle (a screen tile, or a bundle
 of tile-sorted Sobol pixels) on its own: the bundle walks the 9-ary
 sphere tree level by level, culls each node's children against its own
 4 frustum planes and the conservative LOD bound, keeps the survivors in
@@ -27,43 +27,48 @@ spheres are *candidates*; per-ray bounding/LOD/self tests decide hits.
 `min(round_up_128(9**l), max(128, max_frontier // 128 * 128))` nodes;
 survivors past the cap are dropped in order and counted as overflow.
 
-**Where the kernel keeps a bundle's working set.** Both frontier panels
-and the whole queue of a bundle live in the shared memory of one block
-(`kernel_shared_bytes`) whenever they fit the 232,448 bytes a block may
-use: at the default `max_frontier=1024` and depth 7 they take 182,784.
-A configuration whose caps need more (`max_frontier=2048` at depth >= 5,
-the next rung of the CLI's capacity ladder) runs the same kernel body
-with the working set in a workspace in device memory that the wrapper
-allocates: one region per block, one block per multiprocessor, the blocks
-striding over the bundles. The choice follows from the configuration
-alone; the level caps, the arithmetic and the order are the same, so
-the results are too. Nothing is cut silently and the plain version
-never stands in for the kernel.
+**Where the kernel keeps a bundle's working set.** In device memory,
+sized by shapes alone (`queue_words`, `panel_words`): the node launch
+writes every bundle's queue — (x, y, z, |c|^2, code) of each queued
+node, levels packed from position 0 — into the bundle's region of a
+queue pool, and keeps the rotation panels of the level it expands in a
+region per resident block; the ray launch then tests the queues as
+work items (`ITEM_NODES` nodes each) and merges the items' winners by
+minimum. One kernel body serves every `max_frontier`. Nothing is cut
+silently and the plain version never stands in for the kernel.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+from typing import NamedTuple
 
 import torch
 
 from sphereflake_tpu_torch import kernels
 from sphereflake_tpu_torch.config import FractalParams, RenderConfig
+from sphereflake_tpu_torch.ops.binned import (
+    _EMPTY_KEY,
+    ITEM_PAIRS,
+    _item_scratch,
+    _ordered_key,
+)
 from sphereflake_tpu_torch.ops.intersect import safe_sqrt
 
 _BIG = 3.0e38
 
 _LANES = 128  # parent-chunk width; a chunk has 9 * 128 child lanes
-TILE_RAYS = 1024  # rays per kernel bundle (one block)
+TILE_RAYS = 1024  # rays per kernel bundle
 
 PALLAS_MAX_DEPTH = 7  # f32 path-code exactness bound (2*9^7 < 2^24)
 
-# Shared memory one block may opt into on sm_90 (227 KB).
-MAX_SHARED_BYTES = 232448
 _PANEL_ROWS = 9  # rotation rows of a frontier panel (two panels)
 _QUEUE_ROWS = 5  # x, y, z, |c|^2, code of a queued node
-_TABLE_WORDS = 1024  # shared-memory words of the kernel's small tables
 _PLAIN_QUEUE_CHUNK = 32  # queue positions per vectorised ray-test step
+# Queue positions per work item of the ray launch: the pair kernel's
+# item size, `kItemLen` of csrc/item_walk.cuh.
+ITEM_NODES = ITEM_PAIRS
 
 
 def _ru128(n: int) -> int:
@@ -82,19 +87,17 @@ def level_caps(cfg: RenderConfig) -> list[int]:
     ]
 
 
-def workspace_words(cfg: RenderConfig) -> int:
-    """f32 words of one bundle's working set: two 9-row rotation panels
-    of the widest level and the 5-row queue of every level."""
-    caps = level_caps(cfg)
-    return 2 * _PANEL_ROWS * max(caps) + _QUEUE_ROWS * sum(caps)
+def queue_words(cfg: RenderConfig) -> int:
+    """f32 words of one bundle's region of the kernel's queue pool: the
+    5 rows (x, y, z, |c|^2, code) of as many nodes as the level caps
+    hold together."""
+    return _QUEUE_ROWS * sum(level_caps(cfg))
 
 
-def kernel_shared_bytes(cfg: RenderConfig) -> int:
-    """Dynamic shared memory the CUDA kernel needs to hold `cfg`'s
-    working set in one block: `workspace_words` and 1024 words of
-    tables (level scalars, templates, planes, scan scratch, level
-    counts)."""
-    return 4 * (workspace_words(cfg) + _TABLE_WORDS)
+def panel_words(cfg: RenderConfig) -> int:
+    """f32 words of one node block's two 9-row rotation panels of the
+    widest level."""
+    return 2 * _PANEL_ROWS * max(level_caps(cfg))
 
 
 def _level_tables(templates, fractal: FractalParams, cfg: RenderConfig):
@@ -195,11 +198,13 @@ def _expand_level(rot, t, code, live, planes, tmpl, r_c, lod_rc, cap_n,
     return out_rot, out_t, out_code, total
 
 
-def _trace_bundles_plain(d, planes, root, level_tab, expand, caps):
-    """The kernel's two phases for a batch of bundles: d [B, 3, 1024],
-    planes [B, 4, 3] -> (bt [B, 1024], bc [B, 1024], metrics [B, 8])."""
-    B = d.shape[0]
-    dev = d.device
+def _expand_bundles(planes, root, level_tab, expand, caps):
+    """The kernel's node work (phase 1) for a batch of bundles with
+    frustum planes [B, 4, 3]: the queue, one (t [B, 3, cap_l], code
+    [B, cap_l], live [B]) per level — the first live[b] slots of bundle
+    b hold its nodes in queue order — and metrics [B, 8] int32."""
+    B = planes.shape[0]
+    dev = planes.device
     depth = len(caps) - 1
     rot = torch.zeros((B, 9, caps[0]), dtype=torch.float32, device=dev)
     t = torch.zeros((B, 3, caps[0]), dtype=torch.float32, device=dev)
@@ -212,7 +217,6 @@ def _trace_bundles_plain(d, planes, root, level_tab, expand, caps):
     max_level = torch.zeros_like(live)
     qlen = torch.zeros_like(live)
 
-    # ---- phase 1: levelwise expansion, every level's live nodes queued
     queue = []
     for level in range(depth + 1):
         max_level = torch.where(
@@ -230,9 +234,20 @@ def _trace_bundles_plain(d, planes, root, level_tab, expand, caps):
         )
         live = torch.clamp_max(total, cap_n)
         overflow = overflow + torch.clamp_min(total - cap_n, 0)
+    zero = torch.zeros_like(live)
+    metrics = torch.stack(
+        [qlen, overflow, max_level, live, zero, zero, zero, zero], dim=1
+    )
+    return queue, metrics.to(torch.int32)
 
-    # ---- phase 2: every ray tests the queued nodes in queue order;
-    # strict `<`, so the first candidate wins a tie.
+
+def _walk_queue(d, queue, level_tab):
+    """The kernel's ray work (phase 2), the definition: every ray of
+    d [B, 3, 1024] tests its bundle's queued nodes in queue order,
+    strict `<`, so the first candidate wins a tie. Returns (bt, bc),
+    each [B, 1024]: BIG and 0 at a miss."""
+    B = d.shape[0]
+    dev = d.device
     dx, dy, dz = d[:, 0, :, None], d[:, 1, :, None], d[:, 2, :, None]
     bt = torch.full((B, TILE_RAYS), _BIG, dtype=torch.float32, device=dev)
     bc = torch.zeros((B, TILE_RAYS), dtype=torch.float32, device=dev)
@@ -262,11 +277,114 @@ def _trace_bundles_plain(d, planes, root, level_tab, expand, caps):
                 better, torch.gather(qcode, 1, torch.clamp_max(first, q1 - 1)),
                 bc,
             )
-    zero = torch.zeros_like(live)
-    metrics = torch.stack(
-        [qlen, overflow, max_level, live, zero, zero, zero, zero], dim=1
-    )
-    return bt, bc, metrics.to(torch.int32)
+    return bt, bc
+
+
+def _trace_bundles_plain(d, planes, root, level_tab, expand, caps):
+    """The kernel's two phases for a batch of bundles: d [B, 3, 1024],
+    planes [B, 4, 3] -> (bt [B, 1024], bc [B, 1024], metrics [B, 8])."""
+    queue, metrics = _expand_bundles(planes, root, level_tab, expand, caps)
+    bt, bc = _walk_queue(d, queue, level_tab)
+    return bt, bc, metrics
+
+
+# The ray launch's item walk, in plain pieces: the kernel packs each
+# bundle's queue from position 0, cuts it into items of at most
+# `ITEM_NODES` nodes, walks each item keeping one key (ts, q) per ray,
+# merges the items' keys by minimum and reads the winner's node once.
+# The same steps in eager ops, for the tests; no main path runs them.
+
+
+def _pack_queue(queue):
+    """The kernel's queue pool for the queue of `_expand_bundles`: rows
+    (x, y, z, |c|^2, code) [B, 5, Q] with bundle b's levels packed from
+    position 0 (Q its longest queue), and qlen [B]."""
+    B = queue[0][0].shape[0]
+    dev = queue[0][0].device
+    qlen = sum(live for _, _, live in queue)
+    Q = int(qlen.max())
+    pool = torch.zeros((B, _QUEUE_ROWS, Q + 1), dtype=torch.float32,
+                       device=dev)
+    off = torch.zeros_like(qlen)
+    for t, code, live in queue:
+        slot = torch.arange(t.shape[2], device=dev)
+        # Slots past the level's live count go to a dump column.
+        dst = torch.where(slot[None, :] < live[:, None],
+                          off[:, None] + slot[None, :], Q)
+        cc = t[:, 0] * t[:, 0] + t[:, 1] * t[:, 1] + t[:, 2] * t[:, 2]
+        rows = torch.stack([t[:, 0], t[:, 1], t[:, 2], cc, code], dim=1)
+        pool.scatter_(2, dst[:, None, :].expand(-1, _QUEUE_ROWS, -1), rows)
+        off = off + live
+    return pool[:, :, :Q], qlen
+
+
+def _code_level(code):
+    """The level of sentinel-prefixed path codes: a level-l code lies in
+    [9^l, 2 * 9^l). int64, the shape of `code`."""
+    level = torch.zeros(code.shape, dtype=torch.int64, device=code.device)
+    for k in range(1, PALLAS_MAX_DEPTH + 1):
+        level = level + (code >= float(9**k)).to(torch.int64)
+    return level
+
+
+def _walk_queue_keys(d, pool, qlen, level_tab, q_first=0, q_count=None):
+    """The kernel's walk over queue positions [q_first, q_first +
+    q_count) of every bundle (the whole queue by default): per ray the
+    smallest key of (ts, q) (`binned._ordered_key`: the first queue
+    position among equal t) among the nodes that pass,
+    `_EMPTY_KEY` where none does. [B, 1024] int64. Reads max(qlen)
+    back to the host."""
+    B = d.shape[0]
+    dx, dy, dz = d[:, 0], d[:, 1], d[:, 2]
+    best = torch.full((B, TILE_RAYS), _EMPTY_KEY, dtype=torch.int64,
+                      device=d.device)
+    q_max = int(qlen.max()) if B else 0
+    if q_count is not None:
+        q_max = min(q_max, q_first + q_count)
+    for q in range(q_first, q_max):
+        cx, cy, cz, cc, code = (pool[:, r, q, None] for r in range(5))
+        level = _code_level(code)
+        r2, lodr = level_tab[1][level], level_tab[3][level]
+        tca = dx * cx + dy * cy + dz * cz
+        d2 = cc - tca * tca
+        c1 = tca - lodr
+        lod_ok = (c1 < 0.0) | (c1 * c1 < 4.0 * r2 - d2)
+        ok = (q < qlen)[:, None] & (tca >= 0.0) & lod_ok & (d2 <= r2)
+        ts = tca - torch.sqrt(torch.clamp_min(r2 - d2, 0.0))
+        key = torch.where(ok, _ordered_key(ts, q), best)
+        best = torch.minimum(best, key)
+    return best
+
+
+def _winner_from_queue_keys(keys, d, pool, level_tab):
+    """The kernel's finish: (bt, bc) [B, 1024] from merged keys — the
+    winner's node read once per ray, ts recomputed from it by the
+    walk's own expression (so a -0.0 keeps its sign)."""
+    none = keys == _EMPTY_KEY
+    q = torch.where(none, torch.zeros_like(keys), keys & 0xFFFFFFFF)
+    node = torch.gather(pool, 2, q[:, None, :].expand(-1, _QUEUE_ROWS, -1))
+    cx, cy, cz, cc, code = node.unbind(1)
+    r2 = level_tab[1][_code_level(code)]
+    tca = d[:, 0] * cx + d[:, 1] * cy + d[:, 2] * cz
+    d2 = cc - tca * tca
+    ts = tca - torch.sqrt(torch.clamp_min(r2 - d2, 0.0))
+    return (torch.where(none, torch.full_like(ts, _BIG), ts),
+            torch.where(none, torch.zeros_like(code), code))
+
+
+def _walk_queue_split(d, pool, qlen, level_tab, item_nodes: int):
+    """`_walk_queue` the way the ray launch takes it: every queue cut
+    into items of `item_nodes` nodes, each walked on its own
+    (`_walk_queue_keys`), the keys merged by minimum — in reverse order
+    here: any order gives the same keys — and the winner read back
+    (`_winner_from_queue_keys`)."""
+    merged = torch.full((d.shape[0], TILE_RAYS), _EMPTY_KEY,
+                        dtype=torch.int64, device=d.device)
+    for q_first in reversed(range(0, int(qlen.max()), item_nodes)):
+        merged = torch.minimum(merged, _walk_queue_keys(
+            d, pool, qlen, level_tab, q_first, item_nodes
+        ))
+    return _winner_from_queue_keys(merged, d, pool, level_tab)
 
 
 def _empty_outputs(dev):
@@ -309,36 +427,90 @@ def trace_tiles_pallas_soa_plain(dirs_k, tile_planes, root, templates,
     )
 
 
+class _Scratch(NamedTuple):
+    """What one traversal launch needs besides its inputs and outputs,
+    sized by shapes alone (`_traverse_scratch`)."""
+
+    pool: torch.Tensor  # [T, queue_words] f32: the queues
+    panels: torch.Tensor  # [node blocks, panel_words] f32
+    counter: torch.Tensor  # [1] int32: the node launch's draw
+    keys: torch.Tensor  # [T, 1024] int64: merge keys of the ray launch
+    work: torch.Tensor  # [8 T + 8] int32: the ray launch's item table
+
+
+def _node_slots(dev) -> int:
+    """Blocks of the node launch that fit the card at once (asked at
+    every launch: cards may differ)."""
+    fn = getattr(kernels.load("traverse_kernel"), "sf_trace_tiles_node_slots")
+    fn.argtypes, fn.restype = [], ctypes.c_int
+    with torch.cuda.device(dev):
+        slots = fn()
+    if slots <= 0:
+        raise RuntimeError(
+            f"traverse_kernel occupancy query failed: CUDA error {-slots}"
+        )
+    return slots
+
+
+def _traverse_scratch(n_bundles: int, cfg: RenderConfig, dev) -> _Scratch:
+    """The scratch of a traversal launch over `n_bundles` bundles: a
+    queue region per bundle and a pair of rotation panels per resident
+    node block (at most one per bundle)."""
+    n_blocks = min(n_bundles, _node_slots(dev))
+    keys, work = _item_scratch(n_bundles, dev)
+    return _Scratch(
+        pool=torch.empty((n_bundles, queue_words(cfg)), dtype=torch.float32,
+                         device=dev),
+        panels=torch.empty((n_blocks, panel_words(cfg)), dtype=torch.float32,
+                           device=dev),
+        counter=torch.empty((1,), dtype=torch.int32, device=dev),
+        keys=keys, work=work,
+    )
+
+
+def _enqueue_nodes(tile_planes, root, expand, level_tab, cfg: RenderConfig,
+                   scratch: _Scratch, metrics):
+    """Enqueue the node launch: every bundle's queue into the pool and
+    its 8 metrics."""
+    fn = kernels.entry_point("traverse_kernel", "sf_trace_tiles_nodes", 8, 4)
+    kernels.enqueue(
+        fn, "traverse_kernel (nodes)",
+        (tile_planes, root, expand, level_tab, scratch.pool, scratch.panels,
+         metrics, scratch.counter),
+        (tile_planes.shape[0], cfg.max_depth, max(level_caps(cfg)),
+         scratch.panels.shape[0]),
+        tile_planes.device,
+    )
+
+
+def _enqueue_rays(dirs_k, level_tab, cfg: RenderConfig, scratch: _Scratch,
+                  metrics, out):
+    """Enqueue the ray launch (its prologue and its walk) over the queues
+    the node launch left in the pool."""
+    fn = kernels.entry_point("traverse_kernel", "sf_trace_tiles_rays", 7, 3)
+    kernels.enqueue(
+        fn, "traverse_kernel (rays)",
+        (dirs_k, scratch.pool, level_tab, metrics, out, scratch.keys,
+         scratch.work),
+        (dirs_k.shape[0], cfg.max_depth, max(level_caps(cfg))),
+        dirs_k.device,
+    )
+
+
 def _enqueue_traverse_kernel(dirs_k, tile_planes, root, expand, level_tab,
                              cfg: RenderConfig):
     """Enqueue `csrc/traverse_kernel.cu` for every bundle of `dirs_k`,
-    given the level tables of `_level_tables`. The working set lives in
-    shared memory, one block per bundle, when `cfg`'s level caps fit a
-    block; else in a workspace allocated here, one region per block and
-    one block per multiprocessor."""
+    given the level tables of `_level_tables`: the node launch, then the
+    ray launch (one call, one count)."""
     T = dirs_k.shape[0]
     dev = dirs_k.device
     out = torch.empty((T, 2, 8, _LANES), dtype=torch.float32, device=dev)
     metrics = torch.empty((T, 1, 8), dtype=torch.int32, device=dev)
-    shared = kernel_shared_bytes(cfg)
-    if shared <= MAX_SHARED_BYTES:
-        n_blocks = 0
-        workspace = out  # this variant never touches it
-    else:
-        shared = 4 * _TABLE_WORDS
-        n_blocks = min(
-            T, torch.cuda.get_device_properties(dev).multi_processor_count
-        )
-        workspace = torch.empty(
-            (n_blocks, workspace_words(cfg)), dtype=torch.float32, device=dev
-        )
-    fn = kernels.entry_point("traverse_kernel", "sf_trace_tiles", 8, 5)
-    kernels.enqueue(
-        fn, "traverse_kernel",
-        (dirs_k, tile_planes, root, expand, level_tab, out, metrics,
-         workspace),
-        (T, cfg.max_depth, max(level_caps(cfg)), shared, n_blocks), dev,
-    )
+    if dirs_k.data_ptr() % 16:
+        dirs_k = dirs_k.clone()  # the ray launch loads four rays at a time
+    scratch = _traverse_scratch(T, cfg, dev)
+    _enqueue_nodes(tile_planes, root, expand, level_tab, cfg, scratch, metrics)
+    _enqueue_rays(dirs_k, level_tab, cfg, scratch, metrics, out)
     trace_tiles_pallas_soa.launches += 1
     return out, metrics
 
@@ -346,7 +518,8 @@ def _enqueue_traverse_kernel(dirs_k, tile_planes, root, expand, level_tab,
 def _launch_traverse_kernel(dirs_k, tile_planes, root, templates,
                             fractal: FractalParams, cfg: RenderConfig):
     """The kernel path of `trace_tiles_pallas_soa`: level tables in
-    plain ops, then one launch (none for T = 0)."""
+    plain ops, then the kernel's node and ray launches (none for
+    T = 0)."""
     if dirs_k.shape[0] == 0:
         return _empty_outputs(dirs_k.device)
     level_tab, expand = _level_tables(templates, fractal, cfg)
@@ -376,7 +549,7 @@ def trace_tiles_pallas_soa(
     CUDA tensors launch the hand-written kernel (or raise); CPU tensors
     run the plain version. T = 0 returns empty outputs without a
     launch. Launches on the current stream, never synchronises.
-    `trace_tiles_pallas_soa.launches` counts kernel launches."""
+    `trace_tiles_pallas_soa.launches` counts calls that launched."""
     assert cfg.max_depth <= PALLAS_MAX_DEPTH, (
         f"pallas path supports max_depth <= {PALLAS_MAX_DEPTH} "
         "(f32 path-code exactness); use an XLA algorithm for deeper"

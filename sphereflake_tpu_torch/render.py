@@ -106,9 +106,8 @@ def grow_capacity(cfg: RenderConfig) -> RenderConfig:
     Binned path: double global_cap until every level-5 parent fits the
     expansion gate cap (ecap = global_cap/9 >= 59049), then cut the band
     height — banding cuts the live set per band, which bounds capacity
-    at ANY pose. Per-tile paths: double max_frontier (past what one
-    block's shared memory holds, the traversal kernel keeps its working
-    set in device memory)."""
+    at ANY pose. Per-tile paths: double max_frontier (the traversal
+    kernel's scratch in device memory grows with it)."""
     if cfg.algorithm in ("strict", "loose"):
         raise algorithm_not_ported(cfg.algorithm)
     if cfg.algorithm != "binned":
@@ -180,7 +179,7 @@ def _binned_rows(scene: SceneParams, cfg: RenderConfig, frame):
 
 
 def _render_gbuffer_binned(scene: SceneParams, cfg: RenderConfig) -> GBuffer:
-    """The fused production pipeline: ONE kernel launch per band
+    """The fused production pipeline: ONE kernel call per band
     computes raygen + binned ray tests + G-buffer shading; torch's
     remaining jobs are the node binning and the tile->image untiles."""
     rows, (depth_r, nodes_n, overflow) = _binned_rows(

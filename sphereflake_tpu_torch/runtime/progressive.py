@@ -488,9 +488,9 @@ class TileProgressiveState:
     """Frameless accumulation at TILE granularity. The C++ app's workers
     refresh 8-pixel AVX packets chosen by a Sobol stream
     (`Sphereflake.cpp:139-150`); the packet here is a 1024-ray tile (one
-    kernel block), so the frameless unit becomes a tile: each step
+    kernel row), so the frameless unit becomes a tile: each step
     traces a Sobol-chosen batch of whole tiles through the SAME fused
-    kernel as full frames (raygen + trace + shade in one launch) and
+    kernel as full frames (raygen + trace + shade in one call) and
     overwrites those tiles' rows."""
 
     rows: torch.Tensor  # [T, 7, 8, 128] shaded kernel rows (min_t, pos3, nrm3)

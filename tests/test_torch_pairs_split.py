@@ -180,6 +180,36 @@ def test_split_walk_gives_the_subset_rows_of_a_scene(item_pairs, shade_only):
     assert 0.05 < float((want[:, 0] < 1e38).float().mean())
 
 
+@pytest.mark.parametrize("deep", [False, True], ids=["shallow", "deep"])
+def test_split_walk_gives_the_full_grid_rows_of_a_scene(deep):
+    """The full-grid mode is the item walk over every tile of the frame:
+    raygen + split walk at the kernel's item size + shading equal the
+    full grid's plain version, rows and all, shallow (depth 3) and deep
+    (depth 7, two code rows; a LOD factor of 20 keeps its segments
+    within a few hundred pairs)."""
+    cfg = RenderConfig(width=128, height=64, max_depth=7 if deep else 3,
+                       tile_h=32, tile_w=32, algorithm="binned",
+                       lod_factor=20.0 if deep else 70.0)
+    scene = default_scene("cpu")
+    pairs, starts, lens, _ = binned.binned_pairs(
+        scene, cfg, model.root_frame(scene.camera.position),
+        model.child_templates(scene.fractal),
+    )
+    assert int(lens.max()) > binned.ITEM_PAIRS
+    cam = binned.camera_vector(scene, cfg)
+    want, want_m = binned.trace_pairs_fused_plain(cam, pairs, starts, lens, cfg)
+    tid = torch.arange(cfg.tiles_x * cfg.tiles_y, dtype=torch.int32)
+    dx, dy, dz = binned._tile_raygen(cam, tid, cfg)
+    winner = binned._walk_pairs_split(
+        dx, dy, dz, pairs, starts, lens, deep, binned.ITEM_PAIRS
+    )
+    got = binned._shade_rows(dx, dy, dz, winner, deep)
+    assert got.shape[1] == (9 if deep else 8)
+    assert torch.equal(_bits(got), _bits(want))
+    assert torch.equal(want_m[:, 0, 0], lens)
+    assert 0.05 < float((want[:, 1] >= 1).float().mean()) < 0.95
+
+
 # ---- exact ties across item boundaries --------------------------------
 
 # Camera at the origin looking down -z over a 32x32 frame (the pack of
@@ -348,7 +378,7 @@ def test_pair_cap_limit_is_the_keys_field():
         binned._check_keyed_pair_cap(binned.MAX_KEYED_PAIR_CAP + 1)
 
 
-@pytest.mark.parametrize("mode", ["subset", "subset_shade_only", "dirs"])
+@pytest.mark.parametrize("mode", ["full", "subset", "subset_shade_only", "dirs"])
 def test_wrapper_raises_when_pair_cap_exceeds_the_keys_field(mode):
     """Tensors without storage (`meta`) stand in for a table of 2^29
     columns; one column fewer passes the check."""
@@ -360,6 +390,11 @@ def test_wrapper_raises_when_pair_cap_exceeds_the_keys_field(mode):
 
     def call(pair_cap):
         pairs = meta((7, pair_cap))
+        if mode == "full":
+            return binned.trace_pairs_fused_soa(
+                meta((16,)), pairs, meta((2,), torch.int32),
+                meta((2,), torch.int32), cfg,
+            )
         if mode == "dirs":
             return binned.trace_pairs_pallas_soa(
                 meta((3, 3, 8, 128)), pairs, meta((3,), torch.int32),

@@ -170,21 +170,41 @@ def _tie_inputs(swap: bool):
     return d[None].astype(np.float32), planes, root, templates
 
 
+_TIE_CFG = dict(width=32, height=32, max_depth=1, max_frontier=128, **_TILE)
+
+
+@pytest.fixture(scope="module")
+def tie_runs():
+    """The reference kernel (interpret mode) and the port's wrapper on
+    `_tie_inputs(swap)`, once per `swap`."""
+    cache = {}
+
+    def get(swap):
+        if swap not in cache:
+            scene = default_scene()
+            inputs = _tie_inputs(swap)
+            want = ref_pt.trace_tiles_pallas(
+                *(jnp.asarray(x) for x in inputs), scene.fractal,
+                RefConfig(**_TIE_CFG), interpret=True,
+            )
+            got = port_pt.trace_tiles_pallas(
+                *_tensors(*inputs), port_scene(scene).fractal,
+                PortConfig(**_TIE_CFG),
+            )
+            cache[swap] = (
+                [np.asarray(x) for x in want], [x.numpy() for x in got]
+            )
+        return cache[swap]
+
+    return get
+
+
 @pytest.mark.parametrize("swap", [False, True], ids=["pair", "swapped"])
-def test_first_in_queue_order_wins_an_exact_tie(swap):
+def test_first_in_queue_order_wins_an_exact_tie(tie_runs, swap):
     """Child 0 comes before child 1 in the queue (lane j * 128 + p), so
     on an exact tie in t the winner's code is 9 * 1 + 0 whichever of
     the two mirrored spheres child 0 is — in both packages."""
-    kw = dict(width=32, height=32, max_depth=1, max_frontier=128, **_TILE)
-    scene = default_scene()
-    inputs = _tie_inputs(swap)
-    t_w, code_w, m_w = (np.asarray(x) for x in ref_pt.trace_tiles_pallas(
-        *(jnp.asarray(x) for x in inputs), scene.fractal, RefConfig(**kw),
-        interpret=True,
-    ))
-    t_g, code_g, m_g = (x.numpy() for x in port_pt.trace_tiles_pallas(
-        *_tensors(*inputs), port_scene(scene).fractal, PortConfig(**kw)
-    ))
+    (t_w, code_w, m_w), (t_g, code_g, m_g) = tie_runs(swap)
     tied = code_g == 9.0
     assert tied.sum() > 100  # rays through the lens both spheres share
     assert not (code_g == 10.0).any() and not (code_w == 10.0).any()
@@ -193,11 +213,141 @@ def test_first_in_queue_order_wins_an_exact_tie(swap):
     # (near the lens' rim t = tca - sqrt(r^2 - d2) amplifies the last ulps)
     np.testing.assert_allclose(t_g[tied], t_w[tied], rtol=1e-4)
     if swap:  # the same rays, the same t: the tie is exact
-        t_first = port_pt.trace_tiles_pallas(
-            *_tensors(*_tie_inputs(False)), port_scene(scene).fractal,
-            PortConfig(**kw),
-        )[0].numpy()
-        np.testing.assert_array_equal(t_g, t_first)
+        np.testing.assert_array_equal(t_g, tie_runs(False)[1][0])
+
+
+def _split_ray_walk(inputs, cfg, item_nodes):
+    """The port's node work on `inputs` (dirs [T, 1024, 3], planes, root,
+    templates), then the ray launch's plain pieces: the packed queue
+    walked in items of `item_nodes` nodes, merged and finished. Returns
+    (t, code) [T, 1024] and the whole walk's (t, code) and metrics."""
+    tiles, planes, root, templates = _tensors(*inputs)
+    fractal = port_scene(default_scene()).fractal
+    level_tab, expand = port_pt._level_tables(templates, fractal, cfg)
+    d = torch.movedim(tiles, 2, 1).contiguous()
+    queue, metrics = port_pt._expand_bundles(
+        planes, root, level_tab, expand, port_pt.level_caps(cfg)
+    )
+    pool, qlen = port_pt._pack_queue(queue)
+    assert torch.equal(qlen, metrics[:, 0].long())
+    split = port_pt._walk_queue_split(d, pool, qlen, level_tab, item_nodes)
+    return split, port_pt._walk_queue(d, queue, level_tab), metrics
+
+
+@pytest.mark.parametrize("swap", [False, True], ids=["pair", "swapped"])
+@pytest.mark.parametrize("item_nodes", [1, 2])
+def test_exact_tie_across_items_matches_reference_kernel(tie_runs, item_nodes,
+                                                         swap):
+    """The tied children sit at queue positions 1 and 2: in items of 1
+    or 2 nodes they fall in different items, and the merge by (t, q)
+    still gives the first in queue order — the reference's winner on
+    every ray."""
+    (_, code_w, _), (t_g, _, _) = tie_runs(swap)
+    (t_s, code_s), _, _ = _split_ray_walk(
+        _tie_inputs(swap), PortConfig(**_TIE_CFG), item_nodes
+    )
+    np.testing.assert_array_equal(code_s.numpy().reshape(code_w.shape), code_w)
+    assert (code_s == 9.0).sum() > 100
+    assert torch.equal(t_s.reshape(t_g.shape).view(torch.int32),
+                       torch.from_numpy(t_g).view(torch.int32))
+
+
+def _straddle_inputs():
+    """One all-pass depth-2 bundle (identity rotations) whose nine
+    level-1 nodes all survive, so level-2 node (j, p) sits at queue
+    position 10 + 9j + p: (5, 8) at 63 and (6, 0) at 64, in two items of
+    64. The two are mirrored in the plane x = 0 that holds every ray,
+    and every other node lies out of the rays' way: wherever a ray hits
+    one it hits the other at exactly the same t."""
+    templates = np.zeros((9, 3, 4), np.float32)
+    templates[:, :, :3] = np.eye(3, dtype=np.float32)
+    for j in range(9):
+        templates[j, :, 3] = (0.1 * (j - 5), -0.9, 0.0)
+    templates[0, :, 3], templates[8, :, 3] = (0.3, 0.9, 0.0), (-0.3, 0.9, 0.0)
+    templates[6, :, 3], templates[5, :, 3] = (-0.8, 0.9, 0.0), (0.8, 0.9, 0.0)
+    root = np.zeros((3, 4), np.float32)
+    root[:, :3] = np.eye(3, dtype=np.float32)
+    root[:, 3] = (0.0, 0.0, -5.0)
+    y = np.linspace(1.45, 1.75, 1024, dtype=np.float32)
+    d = np.stack([np.zeros_like(y), y, np.full_like(y, -5.0)], axis=-1)
+    d = d / np.sqrt((d * d).sum(axis=-1, keepdims=True))
+    assert (d[:, 0] == 0).all()
+    planes = np.zeros((1, 4, 3), np.float32)  # all-pass
+    return d[None].astype(np.float32), planes, root, templates
+
+
+def test_exact_tie_straddling_an_item_boundary_matches_reference_kernel():
+    """The tied nodes at queue positions 63 and 64 fall in two items of
+    the kernel's size: the merge by (t, q) gives q = 63, code
+    9 * (9 + 8) + 5 = 158, on every tied ray — the reference's winner,
+    and the whole walk's, t included."""
+    kw = dict(width=32, height=32, max_depth=2, max_frontier=128, **_TILE)
+    scene = default_scene()
+    inputs = _straddle_inputs()
+    _, code_w, m_w = (np.asarray(x) for x in ref_pt.trace_tiles_pallas(
+        *(jnp.asarray(x) for x in inputs), scene.fractal, RefConfig(**kw),
+        interpret=True,
+    ))
+    (t_s, code_s), (t_p, code_p), metrics = _split_ray_walk(
+        inputs, PortConfig(**kw), port_pt.ITEM_NODES
+    )
+    np.testing.assert_array_equal(metrics.numpy()[:, None], m_w)
+    assert int(metrics[0, 0]) == 1 + 9 + 81
+    np.testing.assert_array_equal(code_s.numpy().reshape(code_w.shape), code_w)
+    assert int((code_s == 158.0).sum()) > 500
+    assert not bool((code_s == 87.0).any())
+    assert torch.equal(code_s, code_p)
+    assert torch.equal(t_s.view(torch.int32), t_p.view(torch.int32))
+
+
+def _seeded_bundles(seed, n_bundles, spread, scene, depth):
+    """Bundles of 1024 unit rays scattered by `spread` around the
+    direction of one seeded node of the tree (the root, or a child of a
+    child), with all-pass planes: the expansion keeps every node the
+    LOD bound lets through."""
+    rng = np.random.default_rng(seed)
+    root = np.asarray(root_frame(scene.camera.position))
+    templates = np.asarray(child_templates(scene.fractal))
+    aim = []
+    for b in range(n_bundles):
+        c = root[:, 3].copy()
+        rot, scale = root[:, :3], 4.0 / 3.0
+        for _ in range(min(b, depth)):
+            j = rng.integers(0, 9)
+            c = c + rot @ templates[j, :, 3] * scale
+            rot, scale = rot @ templates[j, :, :3], scale / 3.0
+        aim.append(c / np.linalg.norm(c))
+    d = np.asarray(aim)[:, None, :] + spread * rng.normal(size=(n_bundles, 1024, 3))
+    d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+    planes = np.zeros((n_bundles, 4, 3), np.float32)
+    return d, planes, root, templates
+
+
+@pytest.mark.parametrize("item_nodes", [1, 7, 64])
+def test_split_ray_walk_equals_whole_walk_on_seeded_queues(item_nodes):
+    """The ray launch's pieces — keys of (t, q), a walk over an item,
+    the merge by minimum, the finish — give `_trace_bundles_plain`'s
+    winner bit for bit, t included, at any item size: on seeded bundles
+    aimed at nodes of the tree (queues of 219 nodes, overflowing the
+    caps) and on the frame of the depth-4 case (queues of 1 to a few
+    hundred nodes)."""
+    scene = default_scene()
+    seeded = PortConfig(width=64, height=32, max_depth=3, max_frontier=128,
+                        **_TILE)
+    frame = PortConfig(**dict(_CASES["depth4"], **_TILE))
+    for inputs, cfg in (
+        (_seeded_bundles(item_nodes, 4, 0.05, scene, 3), seeded),
+        (_reference_inputs(scene, RefConfig(**dict(_CASES["depth4"], **_TILE))),
+         frame),
+    ):
+        (t_s, code_s), (t_w, code_w), metrics = _split_ray_walk(
+            inputs, cfg, item_nodes
+        )
+        assert torch.equal(t_s.view(torch.int32), t_w.view(torch.int32))
+        assert torch.equal(code_s, code_w)
+        hits = code_w[code_w > 0]
+        assert hits.numel() > 1000 and hits.unique().numel() > 20
+        assert int(metrics[:, 0].max()) > 3 * item_nodes
 
 
 def test_level_caps_match_reference_over_a_grid_of_configs():
@@ -211,26 +361,43 @@ def test_level_caps_match_reference_over_a_grid_of_configs():
     assert port_pt.TILE_RAYS == ref_pt.TILE_RAYS == 1024
 
 
-def test_kernel_working_set_sizes():
-    """The default frontier fits one block's shared memory at every
-    depth; the CLI ladder's next rung (2048) does not from depth 5 on,
-    and then the wrapper gives the kernel a workspace in device memory
-    of the same layout."""
+def test_kernel_scratch_sizes():
+    """The kernel's scratch follows the configuration alone: a queue
+    region per bundle of 5 rows x sum(level caps) and two 9-row panels
+    of the widest level per resident node block — one body for every
+    frontier, the default's and the CLI ladder's next rung (2048)."""
     cfg = lambda **kw: PortConfig(**dict(_TILE, **kw))
-    assert port_pt.kernel_shared_bytes(cfg(max_depth=7)) == 182784
-    for depth in range(8):
-        assert (port_pt.kernel_shared_bytes(cfg(max_depth=depth))
-                <= port_pt.MAX_SHARED_BYTES)
-    assert (port_pt.kernel_shared_bytes(cfg(max_depth=4, max_frontier=2048))
-            <= port_pt.MAX_SHARED_BYTES)
-    big = cfg(max_depth=5, max_frontier=2048)
-    assert port_pt.kernel_shared_bytes(big) > port_pt.MAX_SHARED_BYTES
-    caps = port_pt.level_caps(big)
-    assert caps == [128, 128, 128, 768, 2048, 2048]
-    assert port_pt.workspace_words(big) == 18 * 2048 + 5 * sum(caps)
-    assert port_pt.kernel_shared_bytes(big) == 4 * (
-        port_pt.workspace_words(big) + 1024
+    frame = cfg(max_depth=6)
+    assert port_pt.level_caps(frame) == [128, 128, 128, 768, 1024, 1024, 1024]
+    assert port_pt.queue_words(frame) == 5 * 4224
+    assert port_pt.panel_words(frame) == 18 * 1024
+    # A 1080p frame's 2,040 bundles: 172 MB of queues (298 MB at 2048).
+    assert 2040 * 4 * port_pt.queue_words(frame) == 172_339_200
+    wide = cfg(max_depth=6, max_frontier=2048)
+    assert port_pt.level_caps(wide) == [128, 128, 128, 768, 2048, 2048, 2048]
+    assert 2040 * 4 * port_pt.queue_words(wide) == 297_676_800
+    assert port_pt.panel_words(wide) == 18 * 2048
+    assert port_pt.queue_words(cfg(max_depth=0)) == 5 * 128
+    assert port_pt.ITEM_NODES == 64
+    # The plain queue packs like the kernel's pool: no longer than its
+    # region, levels one after the other.
+    kw = dict(_CASES["overflow"], **_TILE)
+    inputs = _reference_inputs(default_scene(), RefConfig(**kw))
+    tiles, planes, root, templates = _tensors(*inputs)
+    small = PortConfig(**kw)
+    level_tab, expand = port_pt._level_tables(
+        templates, port_scene(default_scene()).fractal, small
     )
+    queue, metrics = port_pt._expand_bundles(
+        planes, root, level_tab, expand, port_pt.level_caps(small)
+    )
+    pool, qlen = port_pt._pack_queue(queue)
+    assert int(qlen.max()) <= port_pt.queue_words(small) // 5
+    assert int(metrics[:, 1].sum()) > 0  # overflow: every cap is full
+    level = port_pt._code_level(pool[:, 4])
+    in_queue = torch.arange(pool.shape[2])[None, :] < qlen[:, None]
+    steps = torch.diff(level, dim=1)[in_queue[:, 1:]]
+    assert bool((steps >= 0).all()) and bool((steps <= 1).all())
 
 
 def test_plain_version_takes_any_frontier():
