@@ -47,7 +47,14 @@ card. Phases, each printing one or more JSON lines:
    step and one sample step (device busy time, idle share, launches,
    top kernels); the pallas frame and its split, the traversal kernel's
    node and ray launches apart, the pallas sample step;
-5. the `kernels` line, the card line, and the final `ok` line.
+5. gradients and fitting: the 4K depth-8 fit of BASELINE config 4
+   (target, 4 Adam steps from a perturbed yaw and radius ratio, one
+   more step timed forward and backward; 4 bands, K1 launches counted
+   per band), the 1080p depth-6 leaf gradients of the G-buffer loss on
+   `binned` and `pallas` equal bit for bit with K1 / K4 replaced by
+   their plain versions, and the 1080p gradient's time and profiler
+   view;
+6. the `kernels` line, the card line, and the final `ok` line.
 
 Any failed check exits non-zero. Without a CUDA device, or outside the
 repository (no `sphereflake_tpu_torch` package beside it), it exits 1
@@ -62,6 +69,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import math
 import time
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): the bound is
@@ -76,6 +84,17 @@ OPS_PER_TEST = 25
 OPS_PER_RAY = 60
 
 WIDTH, HEIGHT, DEPTH = 1920, 1080, 6
+# The fitting user's operating point (BASELINE config 4,
+# tools/fit4k_probe.py:37-64): 4K, depth 8, auto-banded (4 bands).
+FIT_WIDTH, FIT_HEIGHT, FIT_DEPTH, FIT_STEPS = 3840, 2160, 8, 4
+# The backward's recompute of a band against K1's rows of that band: on
+# the kernel's hits, min_t and position within these tolerances on at
+# least RECOMPUTE_CLOSE_MIN of them (the CPU test's bar,
+# tests/test_torch_grad.py::test_depth7_recompute_resolves_the_hi_lane).
+# The normal, (p - c) / r, is printed and not gated: at level 5 a 1e-4
+# relative t error is a good part of r (r = 3^-5), so it differs by up
+# to ~0.2 where min_t agrees.
+RECOMPUTE_RTOL, RECOMPUTE_ATOL, RECOMPUTE_CLOSE_MIN = 1e-4, 1e-5, 0.995
 FRAMES = 3  # render_frame calls whose result is checked
 CLI_FRAMES = 2  # timed frames of the CLI run (plus its warm-up frame)
 # Kernel vs plain, on identical inputs, both without FMA contraction:
@@ -618,6 +637,305 @@ def bound(bytes_moved, ops):
     ops_ms = ops / F32_FLOP_PER_S * 1e3
     return (max(bytes_ms, ops_ms),
             "bytes" if bytes_ms >= ops_ms else "operations", bytes_ms, ops_ms)
+
+
+def detached_call(torch, fn):
+    """`fn` with every tensor argument (and every leaf of a dataclass
+    argument) detached, as the launch wrappers detach theirs."""
+    def call(*args):
+        def detach(x):
+            if isinstance(x, torch.Tensor):
+                return x.detach()
+            if dataclasses.is_dataclass(x) and not isinstance(x, type):
+                return dataclasses.replace(x, **{
+                    f.name: detach(getattr(x, f.name))
+                    for f in dataclasses.fields(x)
+                })
+            return x
+        return fn(*(detach(a) for a in args))
+    return call
+
+
+def leaf_grads(torch, scene, cfg, target, dev):
+    """(loss, leaf gradients) of the G-buffer loss against `target`'s
+    planes: one forward with the graph, one backward."""
+    from sphereflake_tpu_torch.config import SceneParams
+    from sphereflake_tpu_torch.fit import gbuffer_loss
+
+    leaves = [x.detach().clone().requires_grad_(True) for x in scene.leaves()]
+    loss = gbuffer_loss(SceneParams.from_leaves(leaves), target.position,
+                        target.normal, cfg, device=dev)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return loss.detach(), list(grads)
+
+
+def perturbed(scene, dyaw, dratio=0.0):
+    return dataclasses.replace(
+        scene,
+        camera=dataclasses.replace(scene.camera, yaw=scene.camera.yaw + dyaw),
+        fractal=dataclasses.replace(
+            scene.fractal, radius_ratio=scene.fractal.radius_ratio + dratio
+        ),
+    )
+
+
+def band_checks(torch, scene, cfg):
+    """The banded frame of `cfg` band by band, as `render._binned_rows`
+    cuts it: K1 against its plain version on the last band (the largest
+    y offset), and on every band the backward's recompute
+    (`_gbuffer_recompute`, fed K1's codes) against K1's own rows: the
+    same hits, and min_t and position close on the hits (the normal is
+    reported).
+    Returns (K1 vs plain of the last band, per-band recompute stats)."""
+    from sphereflake_tpu_torch.models.sphereflake import (
+        child_templates,
+        root_frame,
+    )
+    from sphereflake_tpu_torch.ops import binned
+
+    band_px = cfg.effective_band_rows * cfg.tile_h
+    n_bands = cfg.tiles_y // cfg.effective_band_rows
+    bcfg = dataclasses.replace(cfg, height=band_px, band_tile_rows=None,
+                               width=cfg.padded_width)
+    per_band = []
+    with torch.no_grad():
+        for b in range(n_bands):
+            offs = (0.0, float(b * band_px))
+            outs = binned._gbuffer_primal(bcfg, cfg.width, cfg.height, scene,
+                                          offs)
+            rec = binned._gbuffer_recompute(bcfg, cfg.width, cfg.height,
+                                            scene, offs, outs[8], outs[9])
+            hit = outs[7] > 0.0
+            close = [torch.isclose(a, k, rtol=RECOMPUTE_RTOL,
+                                   atol=RECOMPUTE_ATOL)[hit]
+                     for a, k in zip(rec, outs[:7])]
+            per_band.append(dict(
+                y_off=offs[1], rays=int(hit.numel()), hits=int(hit.sum()),
+                sky_equal=bool((rec[0][~hit] >= 1.5e38).all()),
+                min_t_close=float(close[0].float().mean()),
+                position_close=float(
+                    torch.stack(close[1:4]).all(dim=0).float().mean()),
+                normal_close=float(
+                    torch.stack(close[4:7]).all(dim=0).float().mean()),
+                max_abs_err_position=float(max(
+                    (a - k).abs()[hit].max() for a, k in zip(rec[1:4], outs[1:4])
+                )),
+                max_abs_err_normal=float(max(
+                    (a - k).abs()[hit].max() for a, k in zip(rec[4:7], outs[4:7])
+                )),
+            ))
+        frame = (cfg.width, cfg.height, 0.0, float((n_bands - 1) * band_px))
+        root = root_frame(scene.camera.position)
+        pairs, starts, lens, (n_pairs, ovf) = binned.binned_pairs(
+            scene, bcfg, root, child_templates(scene.fractal), frame=frame
+        )
+        cam = binned.camera_vector(scene, bcfg, frame=frame)
+        out_k, m_k = binned.trace_pairs_fused_soa(cam, pairs, starts, lens,
+                                                  bcfg)
+        torch.cuda.synchronize()
+        out_p, m_p = binned.trace_pairs_fused_plain(cam, pairs, starts, lens,
+                                                    bcfg)
+    last = compare_rows(torch, out_k, out_p, deep=True)
+    last.update(
+        bits_equal=bits_equal(torch, out_k, out_p),
+        metrics_equal=bool(torch.equal(m_k, m_p)),
+        rows=int(out_k.shape[1]),
+        shape=dict(tiles=int(out_k.shape[0]), y_off=frame[3],
+                   pair_rows=int(pairs.shape[0]), n_pairs=int(n_pairs),
+                   max_segment=int(lens.max()), overflow=int(ovf)),
+    )
+    return last, per_band
+
+
+def gradient_phase(torch, dev, scene, cfg, card, reset_counts, read_counts):
+    """The trainer side: the 4K depth-8 fit (`fit_path`), the leaf
+    gradients with each kernel and with its plain version (bit for bit,
+    `grad_vs_plain`), and the 1080p gradient's time (`grad_times`).
+    Returns the pair and traversal kernels' launches on these paths."""
+    from sphereflake_tpu_torch.config import RenderConfig
+    from sphereflake_tpu_torch.fit import fit, gbuffer_loss
+    from sphereflake_tpu_torch.ops import binned
+    from sphereflake_tpu_torch.ops import pallas_traversal as ptrav
+    from sphereflake_tpu_torch.render import render_gbuffer
+
+    # -- fit_path: config 4 at full width (tools/fit4k_probe.py:37-64) --
+    fcfg = RenderConfig(width=FIT_WIDTH, height=FIT_HEIGHT,
+                        max_depth=FIT_DEPTH, tile_h=32, tile_w=32,
+                        algorithm="binned")
+    bands = fcfg.tiles_y // fcfg.effective_band_rows
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem_before = torch.cuda.memory_allocated()
+    reset_counts()
+    with torch.no_grad():
+        target = render_gbuffer(scene, fcfg, device=dev)
+    target_counts = read_counts()
+    overflow = int(target.metrics.overflow)
+    depth_reached = int(target.metrics.max_depth_reached)
+    start = perturbed(scene, 0.004, 0.004)
+    reset_counts()
+    t0 = time.perf_counter()
+    res = fit(start, target.position, target.normal, fcfg, steps=FIT_STEPS,
+              learning_rate=2e-3, device=dev)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_counts = read_counts()
+    # One more step from the same start, timed apart (CUDA events): its
+    # gradients are the fit's step-0 gradients.
+    reset_counts()
+    from sphereflake_tpu_torch.config import SceneParams
+
+    leaves = [x.detach().clone().requires_grad_(True) for x in start.leaves()]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    loss0 = gbuffer_loss(SceneParams.from_leaves(leaves), target.position,
+                         target.normal, fcfg, device=dev)
+    ev[1].record()
+    grads0 = torch.autograd.grad(loss0, leaves, allow_unused=True)
+    ev[2].record()
+    torch.cuda.synchronize()
+    split_counts = read_counts()
+    peak_mib = (torch.cuda.max_memory_allocated() - mem_before) / 2**20
+    finite = all(bool(torch.isfinite(g).all()) for g in grads0 if g is not None)
+    finite = finite and all(math.isfinite(v) for v in res.losses)
+    fit_path = dict(
+        width=FIT_WIDTH, height=FIT_HEIGHT, depth=FIT_DEPTH, bands=bands,
+        band_tile_rows=fcfg.effective_band_rows, overflow=overflow,
+        max_depth_reached=depth_reached, steps=FIT_STEPS, losses=res.losses,
+        step_ms=fit_s * 1e3 / FIT_STEPS,
+        split_step_ms=dict(forward=ev[0].elapsed_time(ev[1]),
+                           backward=ev[1].elapsed_time(ev[2])),
+        step0_grad=dict(yaw=float(grads0[1]), radius_ratio=float(grads0[5])),
+        grads_finite=finite,
+        pairs_kernel_launches=dict(target=target_counts[0],
+                                   fit=fit_counts[0],
+                                   timed_step=split_counts[0]),
+        peak_memory_mib=peak_mib,
+        peak_memory_process_mib=torch.cuda.max_memory_allocated() / 2**20,
+        card=card,
+    )
+    emit("fit_path", **fit_path)
+    counts_ok = (
+        target_counts == [bands, 0, 0, 0]
+        and fit_counts == [bands * FIT_STEPS, 0, 0, 0]
+        and split_counts == [bands, 0, 0, 0]
+    )
+    if overflow != 0 or not finite or not counts_ok:
+        fail(f"the 4K depth-8 fit went wrong: {fit_path}")
+    if not min(res.losses) < res.losses[0]:
+        fail(f"the 4K depth-8 fit does not descend: {res.losses}")
+    del target, res, leaves, grads0, loss0
+
+    # -- the fit's bands, at its step-0 scene: deep K1 vs plain on the
+    # last band, the backward's recompute vs K1 on every band ----------
+    last, per_band = band_checks(torch, start, fcfg)
+    emit("kernel_vs_plain", kernel="pairs_kernel",
+         variant=f"deep, 4K band {bands - 1} of {bands}",
+         limits=dict(agree_min=AGREE_MIN, abs_err_max=ABS_ERR_MAX), **last)
+    if (last["rows"] != 9 or not last["bits_equal"]
+            or not last["metrics_equal"]):
+        fail(f"pairs_kernel (deep, 4K band) disagrees with its plain "
+             f"version: {last}")
+    check_agreement("pairs_kernel (deep, 4K band)", last)
+    emit("fit_bands_recompute", bands=per_band,
+         limits=dict(rtol=RECOMPUTE_RTOL, atol=RECOMPUTE_ATOL,
+                     close_min=RECOMPUTE_CLOSE_MIN))
+    for b, band in enumerate(per_band):
+        if not band["sky_equal"] or min(
+            band["min_t_close"], band["position_close"]
+        ) < RECOMPUTE_CLOSE_MIN:
+            fail(f"the recompute of 4K band {b} departs from the kernel's "
+                 f"rows: {band}")
+
+    # -- grad_vs_plain: 1080p depth 6, kernel vs its plain version ------
+    pcfg = dataclasses.replace(cfg, algorithm="pallas")
+    path_launches = [0, 0]
+    gtarget = None
+    for alg, c, module, name, plain, slot in (
+        ("binned", cfg, binned, "trace_pairs_fused_soa",
+         binned.trace_pairs_fused_plain, 0),
+        ("pallas", pcfg, ptrav, "trace_tiles_pallas_soa",
+         ptrav.trace_tiles_pallas_soa_plain, 3),
+    ):
+        with torch.no_grad():
+            tgt = render_gbuffer(perturbed(scene, 0.004), c, device=dev)
+        if alg == "binned":
+            gtarget = tgt
+        reset_counts()
+        loss_k, g_k = leaf_grads(torch, scene, c, tgt, dev)
+        counts = read_counts()
+        wrapper = getattr(module, name)
+        setattr(module, name, detached_call(torch, plain))
+        try:
+            loss_p, g_p = leaf_grads(torch, scene, c, tgt, dev)
+        finally:
+            setattr(module, name, wrapper)
+        equal = [
+            (a is None and b is None)
+            or (a is not None and b is not None and torch.equal(a, b))
+            for a, b in zip(g_k, g_p)
+        ]
+        expected = [0, 0, 0, 0]
+        expected[slot] = 1
+        emit("grad_vs_plain", algorithm=alg, kernel=name,
+             width=c.width, height=c.height, depth=c.max_depth,
+             loss=float(loss_k), loss_plain=float(loss_p),
+             loss_bits_equal=bool(torch.equal(loss_k, loss_p)),
+             leaves_bits_equal=all(equal), leaves_equal=equal,
+             launches=counts,
+             yaw_grad=float(g_k[1]), radius_ratio_grad=float(g_k[5]))
+        if not all(equal) or counts != expected:
+            fail(f"{alg} gradients differ with the plain version or "
+                 f"launched {counts}")
+        if not all(torch.isfinite(g).all() for g in g_k if g is not None):
+            fail(f"{alg} gradients are not finite")
+        path_launches[0 if slot == 0 else 1] += 1
+
+    # -- grad_times: 1080p depth 6 binned ------------------------------
+    def grad_step():
+        leaf_grads(torch, scene, cfg, gtarget, dev)
+
+    def forward_only():
+        leaves = [x.detach().clone().requires_grad_(True)
+                  for x in scene.leaves()]
+        return gbuffer_loss(SceneParams.from_leaves(leaves),
+                            gtarget.position, gtarget.normal, cfg, device=dev)
+
+    with torch.no_grad():
+        outs = binned._gbuffer_primal(cfg, cfg.width, cfg.height, scene,
+                                      (0.0, 0.0))
+
+    def recompute():
+        leaves = [x.detach().clone().requires_grad_(True)
+                  for x in scene.leaves()]
+        return binned._gbuffer_recompute(
+            cfg, cfg.width, cfg.height, SceneParams.from_leaves(leaves),
+            (0.0, 0.0), outs[8], outs[9],
+        )
+
+    grad_step()
+    grad_ms = event_ms(torch, grad_step, 5)
+    forward_ms = event_ms(torch, forward_only, 5)
+    recompute_ms = event_ms(torch, recompute, 5)
+    prof = profile_device(torch, grad_step, 3)
+    emit(
+        "grad_times", card=card, width=cfg.width, height=cfg.height,
+        depth=cfg.max_depth, algorithm="binned", grad_ms=grad_ms,
+        split_ms=dict(
+            forward=forward_ms, backward=grad_ms - forward_ms,
+            recompute=recompute_ms,
+            vjp=grad_ms - forward_ms - recompute_ms,
+        ),
+        device_profile=(dict(
+            **prof, idle_share=1.0 - prof["busy_ms"] / grad_ms
+        ) if prof else "profiler reported no device time"),
+        peak_memory_mb=torch.cuda.max_memory_allocated() / 2**20,
+    )
+    return dict(
+        fit_pairs_kernel=target_counts[0] + fit_counts[0] + split_counts[0],
+        pairs_kernel=path_launches[0], traverse_kernel=path_launches[1],
+    )
 
 
 def main(argv) -> int:
@@ -1887,11 +2205,20 @@ def main(argv) -> int:
         peak_memory_mb=torch.cuda.max_memory_allocated() / 2**20,
     )
 
+    # ---- phase 4b: gradients and fitting ----------------------------
+    grad_launches = gradient_phase(
+        torch, dev, scene, cfg, card, reset_counts, read_counts
+    )
+    path_launches[0] += (grad_launches["fit_pairs_kernel"]
+                         + grad_launches["pairs_kernel"])
+    k4_path_launches += grad_launches["traverse_kernel"]
+
     # ---- phase 5: the kernels line, the card, the verdict ----------
     # The three launch modes of one source, and the traversal kernel.
     # `launches` sums the main paths' runs (each counted from 0: frames,
     # the 24-step frameless run, the three frameless CLI runs; pallas
-    # frames and the CLI's pallas sample unit); no single PyTorch call
+    # frames and the CLI's pallas sample unit; the 4K fit and the
+    # 1080p gradients with the kernels); no single PyTorch call
     # computes any of them, so `library_ms` is null.
     source = "sphereflake_tpu_torch/csrc/pairs_kernel.cu"
     print(json.dumps({"kernels": [

@@ -13,8 +13,13 @@ Ported so far: the full-frame forward path,
 path (`runtime/progressive.py`: Sobol-chosen tiles or pixels accumulated
 into one persistent G-buffer, through the kernel's subset and
 ray-bundle modes; `runtime/animate.py`: the camera moving meanwhile);
-and the CLI branches that drive them (`python -m sphereflake_tpu_torch`,
-`--progressive`, `--animate --frameless`).
+the per-tile traversal paths ("pallas", "fast"); gradients on every
+ported path (on "binned" through `ops.binned.BinnedGBuffer`, a recompute
+from the kernel's path codes), fitting (`fit.py`) and checkpoints
+(`runtime/checkpoint.py`, the reference's file format); and the CLI
+branches that drive them (`python -m sphereflake_tpu_torch`,
+`--progressive`, `--animate --frameless`, `--fit`, `--checkpoint`,
+`--resume`).
 
 Every entry point takes an explicit `device` (default "cuda"); asking
 for "cuda" on a machine without one raises — nothing moves to the CPU

@@ -8,8 +8,8 @@ Same split as the reference package's `config.py`:
   identically.
 - ``CameraParams`` / ``FractalParams`` / ``SSAOParams`` /
   ``SceneParams`` — dataclasses of float32 tensors with the reference's
-  leaf names. Every leaf is a tensor on one device, so a later slice can
-  mark leaves ``requires_grad`` and fit them.
+  leaf names. Every leaf is a tensor on one device; mark leaves
+  ``requires_grad`` and the frame builds its graph (`fit.py`).
 
 The port renders ``algorithm="binned"``, ``"pallas"`` and ``"fast"``;
 ``"strict"`` and ``"loose"`` construct (the field defaults are the
@@ -156,6 +156,26 @@ class SceneParams(_Leaves):
     @property
     def device(self) -> torch.device:
         return self.camera.device
+
+    def leaves(self) -> list:
+        """The 15 leaf tensors in the reference pytree's order: camera
+        (position, yaw, pitch, roll, fov), fractal (radius_ratio,
+        root_radius, child_rotations_deg, child_longlat_deg), ssao (6)."""
+        return [
+            getattr(group, f.name)
+            for group in (self.camera, self.fractal, self.ssao)
+            for f in dataclasses.fields(group)
+        ]
+
+    @staticmethod
+    def from_leaves(leaves) -> "SceneParams":
+        """Inverse of `leaves`."""
+        it = iter(leaves)
+        groups = [
+            cls(**{f.name: next(it) for f in dataclasses.fields(cls)})
+            for cls in (CameraParams, FractalParams, SSAOParams)
+        ]
+        return SceneParams(*groups)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -72,14 +72,24 @@ def geo_from_numpy(d, device="cuda") -> dict:
 _CURSOR_FIELDS = ("sample_lo", "sample_hi", "seed", "samples_traced")
 
 
+def cursor_from_numpy(x) -> int:
+    """A frameless cursor word, which the reference stores as a uint32
+    scalar, as the Python int the port keeps on the host."""
+    return int(np.asarray(x).astype(np.int64)) & 0xFFFFFFFF
+
+
+def cursor_to_numpy(n: int) -> np.ndarray:
+    """Inverse of `cursor_from_numpy`: the reference's uint32 scalar."""
+    return np.asarray(n & 0xFFFFFFFF, dtype=np.uint32)
+
+
 def _state_from_numpy(cls, d, device):
     """A frameless state dataclass from a dict of NumPy arrays keyed by
-    the reference's field names: the uint32 cursor fields (which the
-    port keeps on the host) become Python ints, everything else a
-    tensor on `device`."""
+    the reference's field names: the cursor fields become Python ints,
+    everything else a tensor on `device`."""
     return cls(**{
         f.name: (
-            int(np.asarray(d[f.name])) & 0xFFFFFFFF
+            cursor_from_numpy(d[f.name])
             if f.name in _CURSOR_FIELDS
             else tensor_from_numpy(d[f.name], device)
         )
@@ -103,6 +113,51 @@ def progressive_state_from_numpy(d, device="cuda"):
     from sphereflake_tpu_torch.runtime.progressive import ProgressiveState
 
     return _state_from_numpy(ProgressiveState, d, device)
+
+
+def leaves_to_numpy(tree) -> list:
+    """The NumPy leaves of `tree` in the reference pytree's order: a
+    dataclass (a scene, a frameless state, `fit.AdamState`) by its
+    fields in order, lists and tuples in order, None (optax's
+    `EmptyState`) as no leaf. A tensor is one leaf; a Python int — the
+    frameless cursor — is `cursor_to_numpy`'s uint32 scalar."""
+    if isinstance(tree, torch.Tensor):
+        return [tree.detach().cpu().numpy()]
+    if tree is None:
+        return []
+    if isinstance(tree, int) and not isinstance(tree, bool):
+        return [cursor_to_numpy(tree)]
+    if isinstance(tree, (list, tuple)):
+        return [a for x in tree for a in leaves_to_numpy(x)]
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return [
+            a for f in dataclasses.fields(tree)
+            for a in leaves_to_numpy(getattr(tree, f.name))
+        ]
+    raise TypeError(f"no leaves for a {type(tree).__name__}")
+
+
+def leaves_from_numpy(template, arrays):
+    """Inverse of `leaves_to_numpy`: `template`'s structure filled with
+    `arrays` in order. A tensor leaf takes the array's dtype and shape on
+    the template leaf's device; an int leaf is a cursor word
+    (`cursor_from_numpy`)."""
+    it = iter(arrays)
+
+    def fill(t):
+        if isinstance(t, torch.Tensor):
+            return torch.tensor(np.asarray(next(it)), device=t.device)
+        if t is None:
+            return None
+        if isinstance(t, int) and not isinstance(t, bool):
+            return cursor_from_numpy(next(it))
+        if isinstance(t, (list, tuple)):
+            return type(t)(fill(x) for x in t)
+        return dataclasses.replace(t, **{
+            f.name: fill(getattr(t, f.name)) for f in dataclasses.fields(t)
+        })
+
+    return fill(template)
 
 
 def to_numpy(x):

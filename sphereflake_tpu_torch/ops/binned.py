@@ -1044,17 +1044,9 @@ def camera_vector(scene, cfg: RenderConfig, frame=None):
     return torch.cat([tl, ex, ey, origin, tail])
 
 
-def binned_gbuffer(cfg: RenderConfig, frame_w, frame_h, scene, offs):
-    """The production forward pass of one block: expansion + binning in
-    plain torch, then ONE fused kernel call computes raygen + binned
-    ray tests + G-buffer shading. Forward only (the reference's custom
-    JVP — a recompute in plain ops — is a later slice).
-
-    offs = (x_off, y_off) pixel offsets of this block within the frame.
-    Returns flat [T*1024] tensors (min_t, px, py, pz, nx, ny, nz,
-    hit (f32 0/1), code_lo, code_hi), then metrics (int32 [T, 1, 4])
-    and the pair/compaction overflow (0-d int32).
-    """
+def _gbuffer_primal(cfg: RenderConfig, frame_w, frame_h, scene, offs):
+    """One block's forward: expansion + binning in plain torch, then ONE
+    fused kernel call (raygen + binned ray tests + G-buffer shading)."""
     from sphereflake_tpu_torch.models.sphereflake import (
         child_templates,
         root_frame,
@@ -1077,3 +1069,152 @@ def binned_gbuffer(cfg: RenderConfig, frame_w, frame_h, scene, offs):
     nx, ny, nz = flat(-3), flat(-2), flat(-1)
     hit = ((lo >= 1.0) | (hi >= 1.0)).to(torch.float32)
     return (min_t, px, py, pz, nx, ny, nz, hit, lo, hi, m, povf)
+
+
+def _gbuffer_recompute(cfg: RenderConfig, frame_w, frame_h, scene, offs,
+                       lo, hi):
+    """The differentiable surface of one block, h(scene) of the
+    reference's custom JVP: the block's raygen in the kernel's flat tile
+    order, the winner re-derived from the (detached) path codes by
+    `resolve_codes_soa`, then the shading. Returns the 7 differentiable
+    outputs (min_t, px, py, pz, nx, ny, nz), each [T*1024]."""
+    from sphereflake_tpu_torch.camera import corner_rays
+    from sphereflake_tpu_torch.models.sphereflake import (
+        child_templates,
+        root_frame,
+    )
+    from sphereflake_tpu_torch.ops.intersect import safe_sqrt
+    from sphereflake_tpu_torch.ops.pallas_traversal import resolve_codes_soa
+    from sphereflake_tpu_torch.render import _tile
+
+    origin, tl, tr, bl = corner_rays(scene.camera, frame_w / frame_h)
+    dev = origin.device
+    ex, ey = tr - tl, bl - tl
+    u = (
+        torch.arange(cfg.padded_width, dtype=torch.float32, device=dev)[None, :]
+        + float(offs[0])
+    ) / origin.new_tensor(float(frame_w))
+    v = (
+        torch.arange(cfg.padded_height, dtype=torch.float32, device=dev)[:, None]
+        + float(offs[1])
+    ) / origin.new_tensor(float(frame_h))
+    comps = [(tl[a] + (ex[a] * u + ey[a] * v)) - origin[a] for a in range(3)]
+    dnorm = torch.sqrt(comps[0] ** 2 + comps[1] ** 2 + comps[2] ** 2)
+    dx, dy, dz = (_tile(c / dnorm, cfg).reshape(-1) for c in comps)
+    root = root_frame(scene.camera.position)
+    templates = child_templates(scene.fractal)
+    min_t, cx, cy, cz, hit = resolve_codes_soa(
+        dx, dy, dz, lo, root, templates, scene.fractal, cfg,
+        code_hi_f=hi if cfg.max_depth >= 7 else None,
+    )
+    t0 = torch.where(hit, min_t, torch.zeros_like(min_t))
+    px, py, pz = dx * t0, dy * t0, dz * t0
+    wx, wy, wz = px - cx, py - cy, pz - cz
+    nn = safe_sqrt(wx * wx + wy * wy + wz * wz)
+    nn = torch.where(nn > 0, nn, torch.ones_like(nn))
+    hf = hit.to(torch.float32)
+    return (min_t, px, py, pz, hf * (wx / nn), hf * (wy / nn), hf * (wz / nn))
+
+
+class BinnedGBuffer(torch.autograd.Function):
+    """The reference's custom JVP of the binned block
+    (`_gbuffer_primal` + `_gbuffer_jvp`) as an autograd Function over
+    the scene's 15 leaves.
+
+    forward: the kernel's primal (`_gbuffer_primal`), with no graph; it
+    saves the path codes and the leaves. backward: rebuilds
+    `_gbuffer_recompute` under grad from the saved, detached codes and
+    returns its vector-Jacobian product into the leaves — the
+    straight-through gradient of the reference (the discrete winner is
+    the kernel's, the distance and frame are re-derived). jvp: the same
+    recompute in forward mode. hit, the codes, the metrics and the
+    overflow are not differentiable; leaves that take no part (ssao)
+    get no gradient."""
+
+    @staticmethod
+    def forward(statics, offs, *leaves):
+        from sphereflake_tpu_torch.config import SceneParams
+
+        cfg, frame_w, frame_h = statics
+        scene = SceneParams.from_leaves(leaves)
+        outs = _gbuffer_primal(cfg, frame_w, frame_h, scene, offs)
+        # A one-tile block's rows are views of the kernel output; forward
+        # mode needs outputs that own their storage.
+        return tuple(o.clone() if o._is_view() else o for o in outs)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        statics, offs, *leaves = inputs
+        ctx.statics, ctx.offs = statics, offs
+        lo, hi = output[8], output[9]
+        ctx.save_for_backward(lo, hi, *leaves)
+        ctx.save_for_forward(lo, hi, *leaves)
+        ctx.mark_non_differentiable(*output[7:])
+
+    @staticmethod
+    def _recompute(ctx, leaves):
+        from sphereflake_tpu_torch.config import SceneParams
+
+        cfg, frame_w, frame_h = ctx.statics
+        lo, hi = ctx.saved_tensors[:2]
+        return _gbuffer_recompute(
+            cfg, frame_w, frame_h, SceneParams.from_leaves(leaves),
+            ctx.offs, lo, hi,
+        )
+
+    @staticmethod
+    def backward(ctx, *grads):
+        saved = ctx.saved_tensors[2:]
+        wanted = ctx.needs_input_grad[2:]
+        with torch.enable_grad():
+            leaves = [
+                x.detach().requires_grad_(w) for x, w in zip(saved, wanted)
+            ]
+            outs = BinnedGBuffer._recompute(ctx, leaves)
+            inputs = [x for x, w in zip(leaves, wanted) if w]
+            got = iter(torch.autograd.grad(
+                outs, inputs, grads[:7], allow_unused=True
+            ))
+        return (None, None, *(next(got) if w else None for w in wanted))
+
+    @staticmethod
+    def jvp(ctx, _d_statics, _d_offs, *tangents):
+        import torch.autograd.forward_ad as fwAD
+
+        saved = ctx.saved_tensors[2:]
+        # The Function's jvp runs with forward grad switched off; the
+        # recompute needs it on (at the caller's dual level). The switch
+        # is private to torch (checked on 2.11 and 2.13):
+        # tests/test_torch_grad.py::test_forward_grad_switch_is_there
+        # fails by name if a release drops it.
+        with fwAD._set_fwd_grad_enabled(True):
+            leaves = [
+                x.detach() if t is None else fwAD.make_dual(x.detach(), t)
+                for x, t in zip(saved, tangents)
+            ]
+            outs = BinnedGBuffer._recompute(ctx, leaves)
+            d7 = tuple(
+                fwAD.unpack_dual(o).tangent
+                if fwAD.unpack_dual(o).tangent is not None
+                else torch.zeros_like(o)
+                for o in outs
+            )
+        return d7 + (None,) * 5
+
+
+def binned_gbuffer(cfg: RenderConfig, frame_w, frame_h, scene, offs):
+    """The production forward pass of one block: expansion + binning in
+    plain torch, then ONE fused kernel call computes raygen + binned
+    ray tests + G-buffer shading. Differentiable through
+    `BinnedGBuffer` (a recompute from the saved path codes); no graph
+    is built when no leaf requires grad.
+
+    offs = (x_off, y_off) pixel offsets of this block within the frame.
+    Returns flat [T*1024] tensors (min_t, px, py, pz, nx, ny, nz,
+    hit (f32 0/1), code_lo, code_hi), then metrics (int32 [T, 1, 4])
+    and the pair/compaction overflow (0-d int32); min_t/pos/nrm carry
+    derivatives.
+    """
+    return BinnedGBuffer.apply(
+        (cfg, frame_w, frame_h), tuple(offs), *scene.leaves()
+    )

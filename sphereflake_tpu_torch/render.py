@@ -17,12 +17,17 @@ replacement of the C++ app's worker-thread loop,
 metrics (`Sphereflake.h:30-58`) as 0-d device tensors.
 
 "strict" and "loose" are not ported and raise `NotImplementedError`.
-The frame runs under `torch.no_grad()`; on the card it reads nothing
-back to the host between entry and return.
+Differentiable on every ported path: when a scene leaf requires grad
+(and grad mode is on) the frame builds its graph — through
+`ops.binned.BinnedGBuffer` on the binned path, through the path-code
+resolve after the detached traversal kernel on the pallas path, through
+plain ops on the fast path; otherwise it runs under `torch.no_grad()`.
+On the card it reads nothing back to the host between entry and return.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -395,16 +400,28 @@ def _render_gbuffer_tiles(scene: SceneParams, cfg: RenderConfig) -> GBuffer:
     )
 
 
+def _grad_mode(scene: SceneParams):
+    """The frame's autograd context: record the graph when grad mode is
+    on and some leaf requires grad, else `torch.no_grad()` (forward-mode
+    tangents pass either way)."""
+    if torch.is_grad_enabled() and any(
+        leaf.requires_grad for leaf in scene.leaves()
+    ):
+        return contextlib.nullcontext()
+    return torch.no_grad()
+
+
 def render_gbuffer(
     scene: SceneParams, cfg: RenderConfig, device="cuda"
 ) -> GBuffer:
     """Render the full-frame G-buffer for `scene` on `device` (the
     scene's leaves are moved there; asking for "cuda" without one
-    raises). Forward only."""
+    raises). Position, normal and min_t are differentiable in the
+    scene's leaves."""
     if cfg.algorithm in ("strict", "loose"):
         raise algorithm_not_ported(cfg.algorithm)
     scene = scene.to(resolve_device(device))
-    with torch.no_grad():
+    with _grad_mode(scene):
         if cfg.algorithm == "binned":
             return _render_gbuffer_binned(scene, cfg)
         if cfg.algorithm == "pallas":
@@ -415,7 +432,10 @@ def render_gbuffer(
 def render_frame(scene: SceneParams, cfg: RenderConfig, device="cuda"):
     """The complete pipeline of the C++ app's `Render()`
     (`main.cpp:301-335`): trace -> SSAO -> blur x2 -> composite.
-    Returns (image [H, W, 3], GBuffer), both on `device`."""
+    Returns (image [H, W, 3], GBuffer), both on `device`; the image is
+    differentiable in every leaf, the SSAO uniforms included (the radius
+    law's radius only places nearest-texel taps, so — as in the
+    reference — it adds no gradient)."""
     from sphereflake_tpu_torch.ops.noise import ssao_noise_texture
     from sphereflake_tpu_torch.ops.post import postprocess
 
@@ -423,7 +443,7 @@ def render_frame(scene: SceneParams, cfg: RenderConfig, device="cuda"):
     scene = scene.to(dev)
     gb = render_gbuffer(scene, cfg, device=dev)
     noise = torch.from_numpy(ssao_noise_texture(cfg.noise_size)).to(dev)
-    with torch.no_grad():
+    with _grad_mode(scene):
         image = postprocess(
             gb.position, gb.normal, gb.metrics.closest_distance, scene, cfg,
             noise,

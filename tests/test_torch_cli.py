@@ -78,10 +78,14 @@ def test_capacity_retry_loop_recovers_from_overflow(tmp_path, capsys):
 
 def test_unported_flags_are_not_declared():
     flags = {s for a in build_parser()._actions for s in a.option_strings}
-    for flag in ("--fit", "--mesh", "--devices", "--resume", "--checkpoint",
-                 "--profile", "--platform", "--frame-parallel"):
+    for flag in ("--mesh", "--devices", "--profile", "--platform",
+                 "--frame-parallel"):
         assert flag not in flags
     assert "--device" in flags and "--frames" in flags
+    # fitting and checkpoints are ported
+    for flag in ("--fit", "--fit-steps", "--fit-lr", "--fit-params",
+                 "--fit-loss", "--checkpoint", "--resume"):
+        assert flag in flags
     # the frameless branches are ported
     for flag in ("--progressive", "--batch", "--progressive-unit",
                  "--snapshot-every", "--no-trim-prepared", "--seed",

@@ -349,3 +349,116 @@ def test_states_need_a_card_unless_the_cpu_is_asked_for():
         port_prog.progressive_prepare(scene, cfg)
     with pytest.raises(RuntimeError, match="cuda"):
         port_prog.progressive_prepare_trimmed(scene, cfg)
+
+
+def _trim_tie_table():
+    """One 32x32 tile seen by a camera at the origin looking down -z
+    (fov 90): a small sphere at segment position 0, sphere A (+x, code
+    19) at 1, six spheres far outside the tile's frustum at 2..7, and
+    sphere B (-x, code 26) at 8 — A and B of one radius mirrored about
+    x = 0, so every ray of pixel column 16 (dx == 0 exactly) meets both
+    at exactly the same t. Returns (camera leaves, pairs, starts, lens)
+    as NumPy arrays."""
+    pairs = np.zeros((7, 64), np.float32)
+    pairs[3] = -3.0e38
+
+    def put(k, c, r, code):
+        c = np.asarray(c, np.float32)
+        cc, r2 = np.float32(np.dot(c, c)), np.float32(r * r)
+        pairs[0:3, k] = c
+        pairs[3, k] = r2 - cc
+        pairs[4, k] = code
+        pairs[5, k] = np.float32(4900.0) * np.float32(r)
+        pairs[6, k] = np.float32(4.0) * r2 - cc
+
+    put(0, [-0.6, 0.6, -3.0], 0.1, 15.0)
+    put(1, [0.75, 0.0, -5.0], 1.0, 19.0)
+    for k in range(2, 8):
+        put(k, [50.0, 0.0, -5.0 - k], 0.1, 28.0 + k)
+    put(8, [-0.75, 0.0, -5.0], 1.0, 26.0)
+    starts = np.asarray([0], np.int32)
+    lens = np.asarray([9], np.int32)
+    cam = dict(position=np.zeros(3, np.float32), yaw=np.float32(0.0),
+               pitch=np.float32(0.0), roll=np.float32(0.0),
+               fov=np.float32(90.0))
+    return cam, pairs, starts, lens
+
+
+def test_trim_can_swap_an_exact_tie_like_the_reference(monkeypatch):
+    """The trim's "bit-identical" promise does not cover exact ties. The
+    kernels break equal t by (k mod 8, k) of the segment position; the
+    trim closes the gaps its dropped pairs leave, so a tied pair behind
+    them moves to a smaller k and the winner can change: here B at
+    k = 8 (k mod 8 = 0) beats A at k = 1 untrimmed, and after the six
+    pairs between them are dropped B sits at k = 2 and A wins. The
+    reference package trims the same pairs and swaps the same winner,
+    ray for ray — this is the reference's rule, pinned here. Off the tie
+    column, trimmed == untrimmed bit for bit in both packages."""
+    import jax.numpy as jnp
+
+    from sphereflake_tpu.config import CameraParams as RefCamera
+    from sphereflake_tpu.ops import binned as ref_binned
+
+    cam, pairs, starts, lens = _trim_tie_table()
+    kw = dict(width=32, height=32, max_depth=3, **_BINNED)
+    ids = np.asarray([0], np.int32)
+
+    # The port.
+    scene = port_scene(default_scene())
+    scene = dataclasses.replace(scene, camera=dataclasses.replace(
+        scene.camera, **{k: torch.tensor(v) for k, v in cam.items()}))
+    cfg = PortConfig(**kw)
+    table = tuple(torch.from_numpy(x) for x in (pairs, starts, lens))
+    monkeypatch.setattr(
+        port_prog, "progressive_prepare",
+        lambda *a, **k: (*table, torch.zeros((), dtype=torch.int32)),
+    )
+    trimmed = port_prog.progressive_prepare_trimmed(scene, cfg, device="cpu")
+    assert trimmed[2].tolist() == [3]  # the six outside the frustum went
+    camv = port_binned.camera_vector(scene, cfg)
+
+    def port_rows(p, s, n):
+        out, _ = port_binned.trace_pairs_fused_subset(
+            camv, p, s, n, torch.from_numpy(ids), cfg, shade_only=True
+        )
+        return out.numpy()[0].reshape(7, 32, 32)
+
+    untrim_p = port_rows(*table)
+    trim_p = port_rows(*trimmed[:3])
+
+    # The reference, on the same table.
+    ref_scene = default_scene()
+    ref_scene = dataclasses.replace(ref_scene, camera=RefCamera(
+        **{k: jnp.asarray(v) for k, v in cam.items()}))
+    rcfg = RefConfig(**kw)
+    rtable = tuple(jnp.asarray(x) for x in (pairs, starts, lens))
+    monkeypatch.setattr(
+        ref_prog, "progressive_prepare",
+        lambda *a, **k: (*rtable, jnp.int32(0)),
+    )
+    rtrim = ref_prog.progressive_prepare_trimmed(ref_scene, rcfg)
+    assert np.asarray(rtrim[2]).tolist() == [3]
+    rcam = ref_binned.camera_vector(ref_scene, rcfg)
+
+    def ref_rows(p, s, n):
+        out, _ = ref_binned.trace_pairs_fused_subset(
+            rcam, p, s, n, jnp.asarray(ids), rcfg, interpret=True,
+            shade_only=True,
+        )
+        return np.asarray(out)[0].reshape(7, 32, 32)
+
+    untrim_r = ref_rows(*rtable)
+    trim_r = ref_rows(*rtrim[:3])
+
+    for untrim, trim in ((untrim_p, trim_p), (untrim_r, trim_r)):
+        hit = untrim[0, :, 16] < 1e38
+        assert hit.sum() >= 8
+        assert (untrim[4, :, 16][hit] > 0.0).all()  # B (-x) won the tie
+        assert (trim[4, :, 16][hit] < 0.0).all()  # A (+x) wins trimmed
+        off = np.ones(32, bool)
+        off[16] = False
+        np.testing.assert_array_equal(untrim[:, :, off], trim[:, :, off])
+    np.testing.assert_array_equal(trim_p[0] < 1e38, trim_r[0] < 1e38)
+    np.testing.assert_array_equal(
+        np.sign(trim_p[4, :, 16]), np.sign(trim_r[4, :, 16])
+    )
