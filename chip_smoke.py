@@ -4,14 +4,16 @@
 Run from the repository root on a machine with one NVIDIA Hopper card,
 a CUDA toolkit (`nvcc`) and PyTorch built for CUDA:
 
-    python3 chip_smoke.py            # all phases, a minute or two
+    python3 chip_smoke.py            # all phases, two or three minutes
     python3 chip_smoke.py --ptxas    # also print registers / shared memory
                                      # and SASS branch / select counts
 
 It drives the port's main paths at 1920x1080, depth 6 — `render_frame`
 (the call `python -m sphereflake_tpu_torch` makes), the frameless
-refresh (`--progressive`, `--animate --frameless`) and the per-tile
-traversal path (`--algorithm pallas`, full frame and sample unit) — and
+refresh (`--progressive`, `--animate --frameless`), the per-tile
+traversal path (`--algorithm pallas`, full frame and sample unit), the
+parity traversal (`--algorithm strict|loose`), the camera path
+(`--animate`) and `--profile` — and
 holds every hand-written kernel against its plain torch version on the
 card. Phases, each printing one or more JSON lines:
 
@@ -54,7 +56,16 @@ card. Phases, each printing one or more JSON lines:
    `binned` and `pallas` equal bit for bit with K1 / K4 replaced by
    their plain versions, and the 1080p gradient's time and profiler
    view;
-6. the `kernels` line, the card line, and the final `ok` line.
+6. the paths without a kernel of their own and what they launch: the
+   parity traversal (`--algorithm strict`, plain torch) at 1080p depth
+   6 up the capacity ladder, held against the port's golden tracer on a
+   strided pixel subset and against the binned frame, timed, and
+   rendered again with per-node gating (`loose`); the pallas-vs-strict
+   gradient check (one traversal launch); the CLI's full-frame
+   `--animate` (orbit, approach; one pair-kernel launch a render) and an
+   approach from an all-sky pose, which must hold the camera; the
+   CLI's `--profile`, whose trace must name the pair kernel's walk;
+7. the `kernels` line, the card line, and the final `ok` line.
 
 Any failed check exits non-zero. Without a CUDA device, or outside the
 repository (no `sphereflake_tpu_torch` package beside it), it exits 1
@@ -84,6 +95,9 @@ OPS_PER_TEST = 25
 OPS_PER_RAY = 60
 
 WIDTH, HEIGHT, DEPTH = 1920, 1080, 6
+# The wrappers whose launches every main-path run counts, in this order.
+KERNEL_NAMES = ("pairs_kernel", "pairs_kernel_subset", "pairs_kernel_dirs",
+                "traverse_kernel")
 # The fitting user's operating point (BASELINE config 4,
 # tools/fit4k_probe.py:37-64): 4K, depth 8, auto-banded (4 bands).
 FIT_WIDTH, FIT_HEIGHT, FIT_DEPTH, FIT_STEPS = 3840, 2160, 8, 4
@@ -148,8 +162,13 @@ CROSS_T_LEAF_MIN = 0.98
 SPIN_CYCLES = 40_000_000
 
 
+_T0 = time.perf_counter()
+
+
 def emit(phase: str, **kw):
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One JSON line; `t` = seconds since the script started."""
+    t = round(time.perf_counter() - _T0, 1)
+    print(json.dumps({"phase": phase, **kw, "t": t}), flush=True)
 
 
 def fail(msg: str):
@@ -175,18 +194,22 @@ def event_ms(torch, fn, reps: int, queued: bool = False) -> float:
     return start.elapsed_time(end) / reps
 
 
-def profile_device(torch, fn, reps: int):
+def profile_device(torch, fn, reps: int, cuda_only: bool = False):
     """Device-side view of `fn()` from `torch.profiler`: busy
     milliseconds and kernel launches per call, and the kernels that
     take most of the device time. None where the profiler reports no
-    device time (then only the CUDA-event times stand)."""
+    device time (then only the CUDA-event times stand). `cuda_only`
+    records no host events: for a call of a few hundred thousand
+    launches, whose host events would take the profiler longer to
+    gather than the call takes."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(
-        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    ) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if not cuda_only:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
@@ -938,6 +961,403 @@ def gradient_phase(torch, dev, scene, cfg, card, reset_counts, read_counts):
     )
 
 
+# ---- the parity traversal, the camera path, the profiler -----------
+# The strict frame: 1080p depth 6 at the reference pose in 24x32 tiles
+# (a per-tile XLA path needs a tile that divides the frame; neither its
+# default 64x128 nor 32x32 divides 1080), 16 tiles a batch, from
+# max_frontier 1024 up the capacity ladder until nothing overflows.
+STRICT_TILE = (24, 32)
+STRICT_TILE_BATCH = 16
+STRICT_START_FRONTIER = 1024
+STRICT_MAX_RUNGS = 4
+STRICT_TIMED_FRAMES = 1
+# The port's golden tracer (float64, per ray) on every 17th row and
+# column of the strict frame (7,232 rays at 1080p): hit masks agree on
+# at least GOLDEN_HIT_MIN of the pixels; on the common hits t is within
+# atol + rtol |t| on at least GOLDEN_T_CLOSE_MIN of them, with a median
+# error below GOLDEN_T_MEDIAN_MAX. These are the reference's own
+# tolerances (tests/test_traversal.py:13-50) but not its fractions (0.998
+# and 0.99, for depth <= 4): at depth 6, f32 cannot resolve a level-5
+# silhouette (r^2 = 1.7e-5 against ulp(|c|^2 ~ 64) = 7.6e-6), and on
+# these pixels the reference's own strict path reaches 0.9971 and 0.9525
+# (tests/test_torch_strict.py::test_full_hd_strided_pixels, on the CPU).
+GOLDEN_STRIDE = 17
+GOLDEN_HIT_MIN = 0.996
+GOLDEN_T_ATOL = GOLDEN_T_RTOL = 1e-3
+GOLDEN_T_CLOSE_MIN = 0.945
+GOLDEN_T_MEDIAN_MAX = 1e-3
+# The strict frame against the binned frame of the same scene: they
+# gate differently (per ray against the tile-binned pair table) and
+# round differently at level 5, as the pallas frame does (CROSS_*
+# above). The limits sit below what the same test measures on the
+# strided subset on the CPU (hit 0.9986, min_t within 1e-4 on 0.9207
+# and within a level-5 radius on 0.9748 of 2,624 common hits) and, for
+# min_t within 1e-4, below the card's whole frame (0.8983 on an H100:
+# the strided estimate ran high).
+STRICT_BINNED_HIT_MIN = 0.997
+STRICT_BINNED_T_CLOSE_MIN = 0.88
+STRICT_BINNED_T_LEAF_MIN = 0.96
+# The pallas-vs-strict gradient check (tests/test_grad.py:154-191) on a
+# frame small enough for strict's autograd graph: (width, height, depth).
+GRAD_CHECK_SIZE = (256, 128, 3)
+# Frames of each full-frame `--animate` run.
+ANIMATE_FRAMES = 3
+
+
+# ---- PR-7 paths: the parity traversal, the camera path, the profiler ----
+def strict_phase(torch, dev, scene, gb_binned, reset_counts, read_counts,
+                 size=(WIDTH, HEIGHT, DEPTH), tile=STRICT_TILE):
+    """`render_gbuffer` with algorithm "strict" up the capacity ladder
+    until nothing overflows (`strict_rung` lines), held against the port's
+    golden tracer on a strided pixel subset and against the binned frame
+    `gb_binned`; its time and profiler view; then the same frame with
+    per-node gating ("loose") against it. No kernel may launch."""
+    import numpy as np
+
+    from sphereflake_tpu_torch.config import RenderConfig
+    from sphereflake_tpu_torch.models.golden import camera_rays, golden_trace
+    from sphereflake_tpu_torch.render import grow_capacity, render_gbuffer
+
+    t_phase = time.perf_counter()
+    width, height, depth = size
+    scfg = RenderConfig(
+        width=width, height=height, max_depth=depth, tile_h=tile[0],
+        tile_w=tile[1], tile_batch=STRICT_TILE_BATCH,
+        max_frontier=STRICT_START_FRONTIER, algorithm="strict",
+    )
+
+    def ladder(cfg):
+        rungs = []
+        reset_counts()
+        while True:
+            t0 = time.perf_counter()
+            gb = render_gbuffer(scene, cfg, device=dev)
+            overflow = int(gb.metrics.overflow)
+            rungs.append(dict(max_frontier=cfg.max_frontier,
+                              overflow=overflow,
+                              seconds=time.perf_counter() - t0))
+            emit("strict_rung", algorithm=cfg.algorithm,
+                 strict_lod=cfg.strict_lod, **rungs[-1])
+            if not overflow:
+                return cfg, gb, rungs, read_counts()
+            if len(rungs) == STRICT_MAX_RUNGS:
+                fail(f"{cfg.algorithm} still overflows after {rungs}")
+            cfg = grow_capacity(cfg)
+
+    scfg, sgb, rungs, counts = ladder(scfg)
+    m = sgb.metrics
+
+    # The golden tracer (float64, per ray) on the strided subset.
+    cam = scene.camera
+    cam_pos = cam.position.detach().cpu().double().numpy()
+    dirs64 = camera_rays(
+        cam_pos, float(cam.yaw), float(cam.pitch), float(cam.roll),
+        float(cam.fov), width, height,
+    )[::GOLDEN_STRIDE, ::GOLDEN_STRIDE]
+    t0 = time.perf_counter()
+    gold = golden_trace(dirs64, cam_pos, max_depth=depth,
+                        lod_factor=scfg.lod_factor)
+    golden_s = time.perf_counter() - t0
+    sub = lambda x: x[::GOLDEN_STRIDE, ::GOLDEN_STRIDE].cpu().numpy()
+    hit, min_t = sub(sgb.hit), sub(sgb.min_t)
+    ghit = np.isfinite(gold.min_t)
+    both = hit & ghit
+    t_err = np.abs(min_t[both] - gold.min_t[both])
+    t_tol = GOLDEN_T_ATOL + GOLDEN_T_RTOL * np.abs(gold.min_t[both])
+    golden = dict(
+        rays=int(hit.size), stride=GOLDEN_STRIDE, seconds=golden_s,
+        hit_agree=float((hit == ghit).mean()),
+        hit_fraction=float(ghit.mean()), common_hits=int(both.sum()),
+        t_close=float((t_err <= t_tol).mean()),
+        t_median_err=float(np.median(t_err)),
+        golden_max_depth_reached=gold.max_depth_reached,
+        golden_nodes_visited=gold.nodes_visited,
+        limits=dict(hit_agree_min=GOLDEN_HIT_MIN, t_atol=GOLDEN_T_ATOL,
+                    t_rtol=GOLDEN_T_RTOL, t_close_min=GOLDEN_T_CLOSE_MIN,
+                    t_median_max=GOLDEN_T_MEDIAN_MAX),
+    )
+
+    # Against the binned frame of the same scene.
+    bboth = sgb.hit & gb_binned.hit
+    leaf_radius = 3.0 ** -int(m.max_depth_reached)
+    binned_cmp = dict(
+        hit_agree=float((sgb.hit == gb_binned.hit).float().mean()),
+        min_t_close=float(torch.isclose(
+            sgb.min_t, gb_binned.min_t, rtol=1e-4, atol=1e-4
+        )[bboth].float().mean()),
+        min_t_within_leaf_radius=float(
+            ((sgb.min_t - gb_binned.min_t).abs() <= leaf_radius)[bboth]
+            .float().mean()),
+        leaf_radius=leaf_radius,
+        strided_min_t_close=float(torch.isclose(
+            sgb.min_t, gb_binned.min_t, rtol=1e-4, atol=1e-4
+        )[::GOLDEN_STRIDE, ::GOLDEN_STRIDE][
+            bboth[::GOLDEN_STRIDE, ::GOLDEN_STRIDE]].float().mean()),
+        limits=dict(hit_agree_min=STRICT_BINNED_HIT_MIN,
+                    min_t_close_min=STRICT_BINNED_T_CLOSE_MIN,
+                    min_t_within_leaf_radius_min=STRICT_BINNED_T_LEAF_MIN),
+    )
+
+    frame_call = lambda: render_gbuffer(scene, scfg, device=dev)
+    strict_frame_ms = event_ms(torch, frame_call, STRICT_TIMED_FRAMES)
+    prof = profile_device(torch, frame_call, 1, cuda_only=True)
+    if prof is not None:
+        prof["idle_share"] = 1.0 - prof["busy_ms"] / strict_frame_ms
+
+    # Per-node gating ("loose", strict_lod off) from the strict frame's
+    # last rung up.
+    lcfg, lgb, l_rungs, l_counts = ladder(
+        dataclasses.replace(scfg, algorithm="loose", strict_lod=False)
+    )
+    lboth = lgb.hit & sgb.hit
+    loose = dict(
+        max_frontier=lcfg.max_frontier, rungs=l_rungs, launches=l_counts,
+        overflow=int(lgb.metrics.overflow),
+        max_depth_reached=int(lgb.metrics.max_depth_reached),
+        nodes_visited=int(lgb.metrics.nodes_visited),
+        hit_agree_with_strict=float((lgb.hit == sgb.hit).float().mean()),
+        min_t_equal_to_strict=float(
+            (lgb.min_t == sgb.min_t)[lboth].float().mean()),
+        min_t_close_to_strict=float(torch.isclose(
+            lgb.min_t, sgb.min_t, rtol=1e-4, atol=1e-4
+        )[lboth].float().mean()),
+    )
+    out = dict(
+        width=width, height=height, depth=depth, tile=list(tile),
+        tile_batch=STRICT_TILE_BATCH, tiles=scfg.tiles_y * scfg.tiles_x,
+        rungs=rungs, max_frontier=scfg.max_frontier,
+        launches=dict(zip(KERNEL_NAMES, counts)),
+        overflow=int(m.overflow), max_depth_reached=int(m.max_depth_reached),
+        binned_max_depth_reached=int(gb_binned.metrics.max_depth_reached),
+        nodes_visited=int(m.nodes_visited),
+        closest_distance=float(m.closest_distance),
+        hit_fraction=float(sgb.hit.float().mean()),
+        golden=golden, vs_binned=binned_cmp,
+        strict_frame_ms=strict_frame_ms,
+        profile_device=prof or {
+            "busy_ms": None, "note": "torch.profiler reported no device time"
+        },
+        loose=loose, seconds=time.perf_counter() - t_phase,
+    )
+    emit("strict_path", **out)
+    if (int(m.overflow) or int(m.max_depth_reached) != int(
+            gb_binned.metrics.max_depth_reached) or any(counts)
+            or any(l_counts)):
+        fail(f"strict frame properties off: {out}")
+    if (golden["hit_agree"] < GOLDEN_HIT_MIN
+            or golden["t_close"] < GOLDEN_T_CLOSE_MIN
+            or golden["t_median_err"] >= GOLDEN_T_MEDIAN_MAX):
+        fail(f"the strict frame diverges from the golden tracer: {golden}")
+    if (binned_cmp["hit_agree"] < STRICT_BINNED_HIT_MIN
+            or binned_cmp["min_t_close"] < STRICT_BINNED_T_CLOSE_MIN
+            or binned_cmp["min_t_within_leaf_radius"]
+            < STRICT_BINNED_T_LEAF_MIN):
+        fail(f"the strict frame diverges from the binned frame: {binned_cmp}")
+    if loose["overflow"] or not bool(torch.isfinite(lgb.min_t).all()):
+        fail(f"the loose frame is off: {loose}")
+    return out
+
+
+def strict_grad_phase(torch, dev, scene, reset_counts, read_counts):
+    """The pallas-vs-strict gradient check of the reference
+    (`tests/test_grad.py:154-191`) on the card: where both paths hit with
+    `min_t` within rtol 1e-4, the 15 leaf gradients of the weighted
+    position loss agree within rtol 1e-2, atol 1e-4; the pallas gradient
+    launches the traversal kernel once, the strict one nothing."""
+    from sphereflake_tpu_torch.config import RenderConfig, SceneParams
+    from sphereflake_tpu_torch.render import render_gbuffer
+
+    t_phase = time.perf_counter()
+    kw = dict(width=GRAD_CHECK_SIZE[0], height=GRAD_CHECK_SIZE[1],
+              max_depth=GRAD_CHECK_SIZE[2], max_frontier=1024)
+    cfg_s = RenderConfig(**kw, tile_h=64, tile_w=128, algorithm="strict")
+    cfg_p = RenderConfig(**kw, tile_h=32, tile_w=32, algorithm="pallas")
+    g_s = render_gbuffer(scene, cfg_s, device=dev)
+    g_p = render_gbuffer(scene, cfg_p, device=dev)
+    mask = (g_s.hit & g_p.hit & torch.isclose(
+        g_s.min_t, g_p.min_t, rtol=1e-4, atol=0.0))[..., None]
+    weights = torch.tensor([1.0, 1.1, 1.2], device=dev) * mask / (
+        cfg_s.width * cfg_s.height)
+
+    def grads(cfg):
+        leaves = [x.detach().clone().requires_grad_(True)
+                  for x in scene.leaves()]
+        gb = render_gbuffer(SceneParams.from_leaves(leaves), cfg, device=dev)
+        loss = torch.sum(gb.position * weights)
+        got = torch.autograd.grad(loss, leaves, allow_unused=True)
+        return [torch.zeros_like(x) if g is None else g
+                for g, x in zip(got, leaves)]
+
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    gs = grads(cfg_s)
+    s_counts = read_counts()
+    strict_grad_s = time.perf_counter() - t0
+    strict_peak = torch.cuda.max_memory_allocated()
+    reset_counts()
+    gp = grads(cfg_p)
+    p_counts = read_counts()
+    ratios = [
+        float(((a - b).abs() / (1e-4 + 1e-2 * b.abs())).max())
+        for a, b in zip(gs, gp)
+    ]
+    out = dict(
+        width=cfg_s.width, height=cfg_s.height, depth=cfg_s.max_depth,
+        strict_tile=[cfg_s.tile_h, cfg_s.tile_w], mask_pixels=int(mask.sum()),
+        overflow=[int(g_s.metrics.overflow), int(g_p.metrics.overflow)],
+        launches=dict(strict=s_counts, pallas=p_counts),
+        leaf_bar_ratios=ratios, max_bar_ratio=max(ratios),
+        strict_grad_seconds=strict_grad_s,
+        strict_grad_peak_memory_mib=(strict_peak - held) / 2**20,
+        grads_finite=all(bool(torch.isfinite(g).all()) for g in gs + gp),
+        limits=dict(rtol=1e-2, atol=1e-4),
+        seconds=time.perf_counter() - t_phase,
+    )
+    emit("strict_grad", **out)
+    if s_counts != [0, 0, 0, 0] or p_counts != [0, 0, 0, 1]:
+        fail(f"strict_grad launched {out['launches']}: expected none for "
+             "strict and one traversal launch for pallas")
+    if any(out["overflow"]) or out["mask_pixels"] < 1000:
+        fail(f"strict_grad frame off: {out}")
+    if out["max_bar_ratio"] > 1.0 or not out["grads_finite"]:
+        fail(f"pallas and strict leaf gradients disagree: {out}")
+    if max(float(g.abs().max()) for g in gs) <= 0.0:
+        fail("the strict gradient is zero")
+    return p_counts[3]
+
+
+def animate_phase(torch, dev, scene, cfg, cli_main, reset_counts,
+                  read_counts, size_args):
+    """The CLI's full-frame `--animate` (orbit, then approach) on the
+    binned path, and an approach from an all-sky pose through `animate`.
+    Every `render_frame` call is counted (re-renders of an overflowing
+    frame included) and must equal the pair kernel's launches. Returns
+    those launches."""
+    import hashlib
+
+    import numpy as np
+
+    from sphereflake_tpu_torch import render
+    from sphereflake_tpu_torch.runtime.animate import animate
+
+    t_phase = time.perf_counter()
+    renders = []
+    real = render.render_frame
+
+    def counted(s, c, *args, **kwargs):
+        renders.append(s.camera.position.detach().cpu().numpy().copy())
+        return real(s, c, *args, **kwargs)
+
+    runs = {}
+    render.render_frame = counted
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for mode in ("orbit", "approach"):
+                renders.clear()
+                reset_counts()
+                t0 = time.perf_counter()
+                rc = cli_main(size_args + [
+                    "--animate", str(ANIMATE_FRAMES), "--animate-mode", mode,
+                    "-o", os.path.join(tmp, f"{mode}.png"),
+                ])
+                seconds = time.perf_counter() - t0
+                counts = read_counts()
+                pngs = [os.path.join(tmp, f"{mode}_{i:04d}.png")
+                        for i in range(ANIMATE_FRAMES)]
+                blobs = [open(p, "rb").read() if os.path.exists(p) else b""
+                         for p in pngs]
+                runs[mode] = dict(
+                    rc=rc, renders=len(renders), launches=counts,
+                    png_bytes=[len(b) for b in blobs],
+                    distinct_pngs=len({hashlib.sha256(b).hexdigest()
+                                       for b in blobs}),
+                    distance_to_origin=[float(np.linalg.norm(p))
+                                        for p in renders],
+                    ms_per_frame=seconds * 1e3 / ANIMATE_FRAMES,
+                )
+            cam = scene.camera
+            f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)
+            sky = dataclasses.replace(scene, camera=dataclasses.replace(
+                cam, position=f32([0.0, 0.0, 20.0]), yaw=f32(0.0),
+                pitch=f32(math.pi)))
+            renders.clear()
+            reset_counts()
+            frames = list(animate(sky, cfg, 2, mode="approach", device=dev))
+            sky_counts = read_counts()
+            start = sky.camera.position.cpu().numpy()
+            positions = [sc.camera.position.cpu().numpy() for _, sc in frames]
+            runs["approach_all_sky"] = dict(
+                renders=len(renders), launches=sky_counts,
+                positions=[p.tolist() for p in positions],
+                held=all(bool(np.array_equal(p, start)) for p in positions),
+                finite=all(bool(np.isfinite(p).all()) for p in positions),
+                image_max=[float(img.max()) for img, _ in frames],
+            )
+    finally:
+        render.render_frame = real
+    out = dict(frames=ANIMATE_FRAMES, width=cfg.width, height=cfg.height,
+               depth=cfg.max_depth, animate_ms_per_frame=runs["orbit"][
+                   "ms_per_frame"], **runs,
+               seconds=time.perf_counter() - t_phase)
+    emit("animate_path", **out)
+    for mode in ("orbit", "approach"):
+        run = runs[mode]
+        if run["rc"] != 0 or min(run["png_bytes"]) < 10000:
+            fail(f"CLI --animate ({mode}) failed: {run}")
+        if run["launches"] != [run["renders"], 0, 0, 0] or run[
+                "renders"] < ANIMATE_FRAMES:
+            fail(f"CLI --animate ({mode}): launches {run['launches']} for "
+                 f"{run['renders']} renders")
+    if runs["orbit"]["distinct_pngs"] != ANIMATE_FRAMES:
+        fail("the orbit frames are not all different")
+    dist = [d for i, d in enumerate(runs["approach"]["distance_to_origin"])
+            if i == 0 or d != runs["approach"]["distance_to_origin"][i - 1]]
+    if len(dist) != ANIMATE_FRAMES or not all(
+            a > b for a, b in zip(dist, dist[1:])):
+        fail(f"the approach did not move toward the fractal: {dist}")
+    sky_run = runs["approach_all_sky"]
+    if not (sky_run["held"] and sky_run["finite"]) or sky_run[
+            "launches"] != [sky_run["renders"], 0, 0, 0]:
+        fail(f"the all-sky approach moved the camera: {sky_run}")
+    return sum(r["launches"][0] for r in runs.values())
+
+
+def profile_phase(cli_main, reset_counts, read_counts, size_args):
+    """`--frames 2 --profile DIR`: the directory holds a Chrome trace
+    whose device events name the pair kernel's walk. Returns the pair
+    kernel's launches (the warm-up frame and the two timed ones)."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        prof_dir = os.path.join(tmp, "profile")
+        reset_counts()
+        rc = cli_main(size_args + ["--frames", "2", "--profile", prof_dir,
+                                   "-o", os.path.join(tmp, "frame.png")])
+        counts = read_counts()
+        files = sorted(os.listdir(prof_dir)) if os.path.isdir(prof_dir) else []
+        events = []
+        if "trace.json" in files:
+            with open(os.path.join(prof_dir, "trace.json")) as f:
+                events = json.load(f).get("traceEvents", [])
+            trace_bytes = os.path.getsize(os.path.join(prof_dir, "trace.json"))
+        else:
+            trace_bytes = 0
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    walks = [e for e in kernels if "walk_items_kernel" in e.get("name", "")]
+    out = dict(
+        rc=rc, files=files, trace_bytes=trace_bytes, events=len(events),
+        kernel_events=len(kernels), walk_items_kernel_events=len(walks),
+        walk_items_kernel_us=sum(float(e.get("dur", 0)) for e in walks),
+        launches=counts, seconds=time.perf_counter() - t_phase,
+    )
+    emit("profile_cli", **out)
+    if rc != 0 or not files or not walks or counts != [3, 0, 0, 0]:
+        fail(f"--profile: {out}")
+    return counts[0]
+
+
 def main(argv) -> int:
     try:
         import torch
@@ -1436,9 +1856,7 @@ def main(argv) -> int:
     )
     frameless = dict(
         steps=GATE_STEPS, tiles_per_step=TILES_PER_STEP, seed=1,
-        launches=dict(zip(("pairs_kernel", "pairs_kernel_subset",
-                           "pairs_kernel_dirs", "traverse_kernel"),
-                          fl_counts)),
+        launches=dict(zip(KERNEL_NAMES, fl_counts)),
         covered=covered, tiles=n_tiles, overflow=int(st.overflow),
         prepare_overflow=int(prepared[3]),
         samples_traced=st.samples_traced, sample_lo=st.sample_lo,
@@ -1550,9 +1968,7 @@ def main(argv) -> int:
     )
     pallas_path = dict(
         frames=p_rendered,
-        launches=dict(zip(("pairs_kernel", "pairs_kernel_subset",
-                           "pairs_kernel_dirs", "traverse_kernel"),
-                          p_counts)),
+        launches=dict(zip(KERNEL_NAMES, p_counts)),
         cli_png_bytes=png_bytes, overflow=int(pm.overflow),
         max_depth_reached=int(pm.max_depth_reached),
         binned_max_depth_reached=int(gb_kernel.metrics.max_depth_reached),
@@ -2213,13 +2629,24 @@ def main(argv) -> int:
                          + grad_launches["pairs_kernel"])
     k4_path_launches += grad_launches["traverse_kernel"]
 
+    # ---- phase 4d: the parity traversal, the camera path, the profiler
+    strict_phase(torch, dev, scene, gb_kernel, reset_counts, read_counts)
+    k4_path_launches += strict_grad_phase(torch, dev, scene, reset_counts,
+                                          read_counts)
+    path_launches[0] += animate_phase(torch, dev, scene, cfg, cli_main,
+                                      reset_counts, read_counts, size_args)
+    path_launches[0] += profile_phase(cli_main, reset_counts, read_counts,
+                                      size_args)
+
     # ---- phase 5: the kernels line, the card, the verdict ----------
     # The three launch modes of one source, and the traversal kernel.
     # `launches` sums the main paths' runs (each counted from 0: frames,
     # the 24-step frameless run, the three frameless CLI runs; pallas
     # frames and the CLI's pallas sample unit; the 4K fit and the
-    # 1080p gradients with the kernels); no single PyTorch call
-    # computes any of them, so `library_ms` is null.
+    # 1080p gradients with the kernels; the pallas side of the
+    # pallas-vs-strict gradient check; the full-frame camera paths and
+    # the profiled CLI run); no single PyTorch call computes any of
+    # them, so `library_ms` is null.
     source = "sphereflake_tpu_torch/csrc/pairs_kernel.cu"
     print(json.dumps({"kernels": [
         {

@@ -6,20 +6,25 @@ ops and hand-written CUDA kernels for NVIDIA Hopper (sm_90a). It
 imports `torch` and `numpy` only — never `jax`, and nothing of the JAX
 package (it keeps its own copy of every JAX-free helper it needs).
 
-Ported so far: the full-frame forward path,
-`render_frame` = `render_gbuffer` (algorithm "binned": global expansion
--> screen-tile binning -> the fused raygen+trace+shade kernel -> untile)
-+ `postprocess` (SSAO -> blur x2 -> composite); the frameless refresh
-path (`runtime/progressive.py`: Sobol-chosen tiles or pixels accumulated
-into one persistent G-buffer, through the kernel's subset and
-ray-bundle modes; `runtime/animate.py`: the camera moving meanwhile);
-the per-tile traversal paths ("pallas", "fast"); gradients on every
-ported path (on "binned" through `ops.binned.BinnedGBuffer`, a recompute
+Ported: everything the reference does on one device. The full-frame
+forward path, `render_frame` = `render_gbuffer` (algorithm "binned":
+global expansion -> screen-tile binning -> the fused
+raygen+trace+shade kernel -> untile) + `postprocess` (SSAO -> blur x2
+-> composite); the frameless refresh path (`runtime/progressive.py`:
+Sobol-chosen tiles or pixels accumulated into one persistent G-buffer,
+through the kernel's subset and ray-bundle modes); the camera paths
+(`runtime/animate.py`: one full frame per step, or the camera moving
+while the frameless buffer accumulates); the per-tile traversal paths
+("pallas", "fast") and the parity traversal ("strict", "loose"), held
+against the per-ray golden tracer (`models/golden.py`,
+`models/golden_post.py`: NumPy copies of the reference's); gradients on
+every path (on "binned" through `ops.binned.BinnedGBuffer`, a recompute
 from the kernel's path codes), fitting (`fit.py`) and checkpoints
 (`runtime/checkpoint.py`, the reference's file format); and the CLI
-branches that drive them (`python -m sphereflake_tpu_torch`,
-`--progressive`, `--animate --frameless`, `--fit`, `--checkpoint`,
-`--resume`).
+that drives them (`python -m sphereflake_tpu_torch`: `--progressive`,
+`--animate`, `--fit`, `--checkpoint`, `--resume`, `--profile`). Not
+ported yet: the multi-device paths (`torch.distributed`) and the native
+host library (PNG encoder, Sobol, mt19937).
 
 Every entry point takes an explicit `device` (default "cuda"); asking
 for "cuda" on a machine without one raises — nothing moves to the CPU

@@ -11,10 +11,8 @@ Same split as the reference package's `config.py`:
   leaf names. Every leaf is a tensor on one device; mark leaves
   ``requires_grad`` and the frame builds its graph (`fit.py`).
 
-The port renders ``algorithm="binned"``, ``"pallas"`` and ``"fast"``;
-``"strict"`` and ``"loose"`` construct (the field defaults are the
-reference's) but `render.render_gbuffer` raises `NotImplementedError`
-for them.
+The port renders every algorithm of the reference: ``"binned"``,
+``"pallas"``, ``"fast"``, ``"strict"`` and ``"loose"``.
 """
 
 from __future__ import annotations
@@ -196,8 +194,8 @@ class RenderConfig:
     #           (production).
     # "pallas": the per-tile traversal kernel (every tile on its own).
     # "fast":   plain-op levelwise traversal with tile-cone culling.
-    # "strict" / "loose": the reference's parity traversals; they
-    #           construct but do not render yet.
+    # "strict" / "loose": the parity traversal (per-ray gating while
+    #           strict_lod, per-node gating without it).
     algorithm: str = "fast"
     strict_lod: bool = True
     # Binned path: render the frame in horizontal bands of this many

@@ -100,10 +100,14 @@ def ssao_pass(
     nrm = sample_nearest_clamp(normal, uv_x, uv_y)
     sky = torch.sum(pos * pos, dim=-1) == 0.0  # length(position)==0 (:33)
 
-    # rad = SSAOSampleRadius / sqrt(|position.z|)  (:42)
-    rad = sample_radius / torch.sqrt(
+    # rad = SSAOSampleRadius / sqrt(|position.z|)  (:42), held finite: an
+    # all-sky frame's radius law gives the multiplier times the 3e38 miss
+    # sentinel, whose taps would be inf * 0 = NaN and index the G-buffer
+    # out of bounds. Only sky pixels, written black below, ever reach the
+    # bound.
+    rad = torch.clamp_max(sample_radius / torch.sqrt(
         torch.clamp_min(torch.abs(pos[..., 2]), 1e-20)
-    )
+    ), 1e30)
 
     # random reflection vector from the LINEAR+REPEAT noise texture (:44)
     nz = sample_bilinear_repeat(noise, uv_x * 0.1, uv_y * 0.1)[..., :2]

@@ -6,8 +6,10 @@ chain, by `cfg.algorithm`:
 - "pallas": raygen -> per-tile frustum planes -> the per-tile traversal
   kernel (`ops/pallas_traversal.py`) -> path-code resolve -> shade ->
   untile (`_render_gbuffer_soa`);
-- "fast": the same tiles through the plain-op cone-culled traversal
-  (`ops/traversal.trace_tile_fast`), `cfg.tile_batch` tiles at a time.
+- "fast", "strict", "loose": the same tiles through a plain-op
+  traversal (`ops/traversal.tile_tracer`: the cone-culled
+  `trace_tile_fast`, or the parity traversal `trace_tile`, gated per ray
+  when `cfg.strict_lod`), `cfg.tile_batch` tiles at a time.
 
 Counterpart of the reference package's `render.py` (itself the
 replacement of the C++ app's worker-thread loop,
@@ -16,12 +18,12 @@ replacement of the C++ app's worker-thread loop,
 (camera-relative positions, unit normals, zeros for sky), plus its live
 metrics (`Sphereflake.h:30-58`) as 0-d device tensors.
 
-"strict" and "loose" are not ported and raise `NotImplementedError`.
-Differentiable on every ported path: when a scene leaf requires grad
-(and grad mode is on) the frame builds its graph — through
+Differentiable on every path: when a scene leaf requires grad (and
+grad mode is on) the frame builds its graph — through
 `ops.binned.BinnedGBuffer` on the binned path, through the path-code
 resolve after the detached traversal kernel on the pallas path, through
-plain ops on the fast path; otherwise it runs under `torch.no_grad()`.
+plain ops on the fast, strict and loose paths; otherwise it runs under
+`torch.no_grad()`.
 On the card it reads nothing back to the host between entry and return.
 """
 
@@ -49,7 +51,6 @@ from sphereflake_tpu_torch.models.sphereflake import (
 )
 from sphereflake_tpu_torch.ops.traversal import (
     TraceResult,
-    algorithm_not_ported,
     shade_gbuffer,
     tile_tracer,
 )
@@ -113,8 +114,6 @@ def grow_capacity(cfg: RenderConfig) -> RenderConfig:
     height — banding cuts the live set per band, which bounds capacity
     at ANY pose. Per-tile paths: double max_frontier (the traversal
     kernel's scratch in device memory grows with it)."""
-    if cfg.algorithm in ("strict", "loose"):
-        raise algorithm_not_ported(cfg.algorithm)
     if cfg.algorithm != "binned":
         return dataclasses.replace(cfg, max_frontier=cfg.max_frontier * 2)
     if cfg.global_cap < (9 << 16):
@@ -418,8 +417,6 @@ def render_gbuffer(
     scene's leaves are moved there; asking for "cuda" without one
     raises). Position, normal and min_t are differentiable in the
     scene's leaves."""
-    if cfg.algorithm in ("strict", "loose"):
-        raise algorithm_not_ported(cfg.algorithm)
     scene = scene.to(resolve_device(device))
     with _grad_mode(scene):
         if cfg.algorithm == "binned":

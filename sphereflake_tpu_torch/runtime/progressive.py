@@ -19,9 +19,9 @@ state and leaves the old one as it was):
   Sobol chooses PIXELS; batches are tile-sorted into 1024-ray bundles,
   traced over conservative pair-segment spans by the ray-bundle mode of
   the pair kernel ("binned") or each on its own by the per-tile
-  traversal kernel ("pallas"), or traced as one tile by the plain-op
-  traversal ("fast"), and scattered per pixel. It exists for parity with the
-  C++ app's exact sampling law.
+  traversal kernel ("pallas"), or traced as one tile by a plain-op
+  traversal ("fast", "strict", "loose"), and scattered per pixel. It
+  exists for parity with the C++ app's exact sampling law.
 
 The display analogue is reading the state's tensors between steps.
 
@@ -62,7 +62,6 @@ from sphereflake_tpu_torch.ops.sobol import sobol_sample
 from sphereflake_tpu_torch.ops.traversal import (
     _BIG,
     TraceResult,
-    algorithm_not_ported,
     shade_gbuffer,
     tile_tracer,
 )
@@ -375,8 +374,8 @@ def progressive_step(
     By `cfg.algorithm`: "binned" sorts the batch into 1024-ray bundles
     for the pair kernel's ray-bundle mode, "pallas" for the per-tile
     traversal kernel (each bundle culled by its own bounding pyramid);
-    "fast" traces the whole batch as one tile through the plain-op
-    traversal.
+    "fast", "strict" and "loose" trace the whole batch as one tile
+    through their plain-op traversal (`ops/traversal.tile_tracer`).
 
     `prepared` (binned only): the cached `progressive_prepare` pair
     table (the UNTRIMMED one — bundle spans need the segments of
@@ -384,8 +383,6 @@ def progressive_step(
     re-bins the whole frame."""
     from sphereflake_tpu_torch.ops.pallas_traversal import TILE_RAYS
 
-    if cfg.algorithm in ("strict", "loose"):
-        raise algorithm_not_ported(cfg.algorithm)
     bundled = cfg.algorithm in ("pallas", "binned")
     if bundled:
         assert batch_size % TILE_RAYS == 0, (

@@ -78,8 +78,7 @@ def test_capacity_retry_loop_recovers_from_overflow(tmp_path, capsys):
 
 def test_unported_flags_are_not_declared():
     flags = {s for a in build_parser()._actions for s in a.option_strings}
-    for flag in ("--mesh", "--devices", "--profile", "--platform",
-                 "--frame-parallel"):
+    for flag in ("--mesh", "--devices", "--platform", "--frame-parallel"):
         assert flag not in flags
     assert "--device" in flags and "--frames" in flags
     # fitting and checkpoints are ported
@@ -92,13 +91,15 @@ def test_unported_flags_are_not_declared():
                  "--animate", "--animate-mode", "--speed-factor",
                  "--frameless"):
         assert flag in flags
-    # so are the per-tile paths; the parity traversals are not offered
-    for flag in ("--max-frontier", "--tile-batch"):
+    # so are the per-tile paths, the parity traversals and the profiler
+    for flag in ("--max-frontier", "--tile-batch", "--loose-lod",
+                 "--profile"):
         assert flag in flags
-    assert "--loose-lod" not in flags
     algorithm = next(a for a in build_parser()._actions
                      if a.dest == "algorithm")
-    assert tuple(algorithm.choices) == ("auto", "binned", "pallas", "fast")
+    assert tuple(algorithm.choices) == (
+        "auto", "binned", "pallas", "fast", "strict", "loose"
+    )
 
 
 def test_cuda_without_a_card_is_an_error_not_a_cpu_run(tmp_path, capsys):

@@ -197,8 +197,10 @@ def test_tile_tracer_dispatch():
             ref_trav.tile_tracer(RefConfig(**dict(_KW, algorithm=algorithm)))
         assert str(port_err.value) == str(ref_err.value)
     for algorithm in ("strict", "loose"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port_trav.tile_tracer(cfg(algorithm))
+        assert port_trav.tile_tracer(cfg(algorithm)) is port_trav.trace_tile
+        assert ref_trav.tile_tracer(
+            RefConfig(**dict(_KW, algorithm=algorithm))
+        ) is ref_trav.trace_tile
     with pytest.raises(ValueError, match="unknown algorithm"):
         port_trav.tile_tracer(cfg("bogus"))
 

@@ -136,10 +136,21 @@ def test_frameless_animate_cli(tmp_path, capsys, mode):
 
 
 def test_full_frame_animate_is_not_ported(tmp_path, capsys):
+    """The full-frame camera path is ported (one PNG per frame); its
+    multi-device form, `animate(mesh=...)`, is not, and says so."""
     rc = main(_common("--animate", "2", "-o", str(tmp_path / "n.png")))
-    assert rc == 2
-    assert "not ported" in capsys.readouterr().err
-    assert not list(tmp_path.glob("*.png"))
+    assert rc == 0
+    assert "animate: 2 frames (orbit)" in capsys.readouterr().out
+    assert sorted(p.name for p in tmp_path.glob("*.png")) == [
+        "n_0000.png", "n_0001.png"
+    ]
+    cfg = PortConfig(width=64, height=32, max_depth=1, tile_h=32, tile_w=32,
+                     algorithm="binned")
+    frames = port_animate.animate(
+        port_scene(default_scene()), cfg, 1, mesh=object(), device="cpu"
+    )
+    with pytest.raises(NotImplementedError, match="M11"):
+        next(frames)
 
 
 def _always_overflowing(monkeypatch):

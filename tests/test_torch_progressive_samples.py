@@ -236,14 +236,19 @@ def test_overflow_accumulates_and_cursor_carries_on_the_sample_path():
 
 @pytest.mark.parametrize("algorithm", ["strict", "loose"])
 def test_unported_algorithms_raise(algorithm):
-    """The parity traversals, not ported yet, name their ROADMAP item
-    instead of taking another path."""
-    cfg = PortConfig(width=96, height=64, tile_h=32, tile_w=32,
+    """The parity traversals are ported: the step traces the whole batch
+    as one tile through `trace_tile`, with no kernel launch; only an
+    algorithm that does not exist raises."""
+    cfg = PortConfig(width=96, height=64, tile_h=32, tile_w=32, max_depth=2,
                      algorithm=algorithm)
     scene = port_scene(default_scene())
     state = port_prog.progressive_init(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_prog.progressive_step(state, scene, cfg, batch_size=1024)
+    st = port_prog.progressive_step(state, scene, cfg, batch_size=1024)
+    assert st.samples_traced == 1024 and int(st.overflow) == 0
+    assert 0 < int((st.min_t < 1e38).sum()) <= 1024
+    bogus = dataclasses.replace(cfg, algorithm="bogus")
+    with pytest.raises(ValueError, match="unknown algorithm"):
+        port_prog.progressive_step(state, scene, bogus, batch_size=1024)
 
 
 def test_batch_must_be_whole_bundles():

@@ -277,15 +277,26 @@ def test_grow_capacity_ladder_matches_reference():
 
 @pytest.mark.parametrize("algorithm", ["strict", "loose"])
 def test_unported_algorithms_raise(algorithm):
-    """The parity traversals, not ported yet, name their ROADMAP item
-    instead of silently taking another path."""
-    cfg = PortConfig(width=128, height=64, tile_h=32, tile_w=32,
-                     algorithm=algorithm)
+    """The parity traversals are ported: they render, and their capacity
+    ladder is the reference's (max_frontier doubles); only an algorithm
+    that does not exist raises."""
+    kw = dict(width=128, height=64, tile_h=32, tile_w=32, max_depth=2,
+              algorithm=algorithm)
+    cfg = PortConfig(**kw)
     scene = port_scene(default_scene())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_render.render_gbuffer(scene, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_render.grow_capacity(cfg)
+    gb = port_render.render_gbuffer(scene, cfg, device="cpu")
+    assert int(gb.metrics.max_depth_reached) == 2
+    assert int(gb.metrics.overflow) == 0
+    assert 0.05 < float(gb.hit.float().mean()) < 0.95
+    grown = port_render.grow_capacity(cfg)
+    assert grown.max_frontier == 2 * cfg.max_frontier
+    assert dataclasses.asdict(grown) == dataclasses.asdict(
+        ref_render.grow_capacity(RefConfig(**kw))
+    )
+    with pytest.raises(ValueError, match="unknown algorithm"):
+        port_render.render_gbuffer(
+            scene, dataclasses.replace(cfg, algorithm="bogus"), device="cpu"
+        )
 
 
 def test_frame_path_makes_no_host_reads(monkeypatch):
