@@ -1358,6 +1358,574 @@ def profile_phase(cli_main, reset_counts, read_counts, size_args):
     return counts[0]
 
 
+# The multi-device operating points: the 1080p depth-6 frame over
+# a 2x2 mesh of the one card (`[cuda:0] * 4`).
+MESH_SHAPE = (2, 2)
+# The per-block path, forced: bands of 17 tile rows = one band per
+# 544-row block, so one K1 launch a block.
+BLOCK_BAND_ROWS = 17
+# The per-block binned frame against the single-device one: the
+# reference's own bars (tests/test_sharded.py:117-124) — hit masks
+# differ on at most SHARD_HIT_MISMATCH_MAX of the pixels, min_t within
+# rtol = atol = 1e-4 on more than SHARD_T_CLOSE_MIN of the common hits.
+# The pallas mesh traces directions computed AoS (`ray_directions` at
+# global pixel coordinates, as the reference's per-block path does): it
+# must equal the full frame traced through the same AoS pipeline
+# (`render._render_gbuffer_tiles`) bit for bit. Against the single-device
+# pallas frame, whose directions are computed SoA (`_soa_raygen`), the
+# rays differ by ulps and at level 5 the f32 hit test is
+# rounding-decided: held to the bars of two f32 raygens of one frame,
+# STRICT_BINNED_* (on the H100 the mesh measured hit 0.99858, min_t
+# close 0.9413, within a leaf radius 0.9732: under the CROSS_* bars of
+# two traversals, 0.999 and 0.98).
+SHARD_HIT_MISMATCH_MAX = 1e-3
+SHARD_T_CLOSE_MIN = 0.995
+# The sharded frameless refresh: 256 tiles a cell a step on the trimmed
+# table, stepped until every tile is covered (at most this many steps).
+SHARD_TILES_PER_DEVICE = 256
+SHARD_MAX_STEPS = 12
+# Sharded fit step vs single-device fit step (the blocks' gradients are
+# summed in another order): loss within rtol 1e-5, every leaf gradient
+# within rtol 1e-3 + atol 1e-6.
+FIT_LOSS_RTOL, FIT_GRAD_RTOL, FIT_GRAD_ATOL = 1e-5, 1e-3, 1e-6
+# Frame data parallelism: orbit frames, one per cell of a 1D mesh.
+DP_FRAMES = 4
+WORKER_TIMEOUT = 300
+
+
+def sharded_phase(torch, dev, scene, cfg, card, reset_counts, read_counts):
+    """`sharded_path`: the 1080p depth-6 frame over a 2x2 mesh of the one
+    card — the shared bin (K2 coded, one launch a block; bit for bit
+    `render_gbuffer`), the per-block path (K1 a block) and the pallas
+    mesh (K4 a block) against their single-device frames, the sharded
+    `render_frame` against `render_frame`, and each sharded frame's time
+    beside the single-device one. Returns the launches [K1, K2, K3, K4]."""
+    from sphereflake_tpu_torch.parallel import (
+        make_mesh,
+        render_frame_sharded,
+        render_gbuffer_sharded,
+        shared_bin_supported,
+    )
+    from sphereflake_tpu_torch.render import (
+        _render_gbuffer_tiles,
+        render_frame,
+        render_gbuffer,
+    )
+
+    t_phase = time.perf_counter()
+    mesh = make_mesh([dev] * (MESH_SHAPE[0] * MESH_SHAPE[1]),
+                     shape=MESH_SHAPE)
+    total = [0, 0, 0, 0]
+
+    def counted(fn):
+        reset_counts()
+        out = fn()
+        counts = read_counts()
+        for i, c in enumerate(counts):
+            total[i] += c
+        return out, counts
+
+    def versus(got, want):
+        hit_mismatch = float((got.hit != want.hit).float().mean())
+        both = got.hit & want.hit
+        close = torch.isclose(got.min_t, want.min_t, rtol=1e-4, atol=1e-4)
+        leaf = 3.0 ** -int(want.metrics.max_depth_reached)
+        return dict(
+            hit_mismatch=hit_mismatch,
+            min_t_close=float(close[both].float().mean()),
+            min_t_within_leaf_radius=float(
+                ((got.min_t - want.min_t).abs() <= leaf)[both].float().mean()),
+        )
+
+    with torch.no_grad():
+        single = render_gbuffer(scene, cfg, device=dev)
+        supported = shared_bin_supported(cfg, mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        shared, shared_counts = counted(
+            lambda: render_gbuffer_sharded(scene, cfg, mesh))
+        # What the sharded frame adds to what the process holds.
+        peak_mib = (torch.cuda.max_memory_allocated() - held) / 2**20
+        planes_equal = {k: bool(torch.equal(getattr(shared, k),
+                                            getattr(single, k)))
+                        for k in ("min_t", "position", "normal", "hit")}
+        metrics_equal = {
+            f.name: bool(torch.equal(getattr(shared.metrics, f.name),
+                                     getattr(single.metrics, f.name)))
+            for f in dataclasses.fields(single.metrics)
+        }
+        bcfg = dataclasses.replace(cfg, band_tile_rows=BLOCK_BAND_ROWS)
+        blocks, block_counts = counted(
+            lambda: render_gbuffer_sharded(scene, bcfg, mesh))
+        pcfg = dataclasses.replace(cfg, algorithm="pallas")
+        p_single = render_gbuffer(scene, pcfg, device=dev)
+        p_aos = _render_gbuffer_tiles(scene, pcfg)
+        p_mesh, pallas_counts = counted(
+            lambda: render_gbuffer_sharded(scene, pcfg, mesh))
+        aos_equal = {k: bool(torch.equal(getattr(p_mesh, k),
+                                         getattr(p_aos, k)))
+                     for k in ("min_t", "position", "normal", "hit")}
+        img_1, _ = render_frame(scene, cfg, device=dev)
+        (img_s, _), frame_counts = counted(
+            lambda: render_frame_sharded(scene, cfg, mesh))
+        frame_err = float((img_s - img_1).abs().max())
+        frame_bits = bool(torch.equal(img_s, img_1))
+        times = dict(
+            frame_ms=event_ms(torch, lambda: render_frame(
+                scene, cfg, device=dev), 3),
+            sharded_frame_ms=event_ms(torch, lambda: render_frame_sharded(
+                scene, cfg, mesh), 3),
+            gbuffer_ms=event_ms(torch, lambda: render_gbuffer(
+                scene, cfg, device=dev), 3),
+            shared_bin_gbuffer_ms=event_ms(torch, lambda: (
+                render_gbuffer_sharded(scene, cfg, mesh)), 3),
+            per_block_gbuffer_ms=event_ms(torch, lambda: (
+                render_gbuffer_sharded(scene, bcfg, mesh)), 3),
+            pallas_gbuffer_ms=event_ms(torch, lambda: render_gbuffer(
+                scene, pcfg, device=dev), 3),
+            pallas_mesh_gbuffer_ms=event_ms(torch, lambda: (
+                render_gbuffer_sharded(scene, pcfg, mesh)), 3),
+        )
+    out = dict(
+        width=cfg.width, height=cfg.height, depth=cfg.max_depth,
+        mesh=list(MESH_SHAPE), shared_bin_supported=supported,
+        pair_cap=cfg.pair_cap, tiles=[cfg.tiles_y, cfg.tiles_x],
+        shared_bin=dict(launches=shared_counts, planes_equal=planes_equal,
+                        metrics_equal=metrics_equal,
+                        overflow=int(shared.metrics.overflow),
+                        peak_memory_mib=peak_mib),
+        per_block=dict(band_tile_rows=BLOCK_BAND_ROWS, launches=block_counts,
+                       overflow=int(blocks.metrics.overflow),
+                       **versus(blocks, single)),
+        pallas=dict(launches=pallas_counts,
+                    overflow=int(p_mesh.metrics.overflow),
+                    equals_aos_frame=aos_equal,
+                    **versus(p_mesh, p_single)),
+        render_frame=dict(launches=frame_counts, max_abs_err=frame_err,
+                          bits_equal=frame_bits,
+                          limit=dict(max_abs_err=COMPOSITE_ERR_MAX)),
+        limits=dict(per_block=dict(hit_mismatch_max=SHARD_HIT_MISMATCH_MAX,
+                                   min_t_close_min=SHARD_T_CLOSE_MIN),
+                    pallas=dict(hit_agree_min=STRICT_BINNED_HIT_MIN,
+                                min_t_close_min=STRICT_BINNED_T_CLOSE_MIN,
+                                min_t_within_leaf_radius_min=(
+                                    STRICT_BINNED_T_LEAF_MIN))),
+        times=times, card=card, seconds=time.perf_counter() - t_phase,
+    )
+    emit("sharded_path", **out)
+    n = MESH_SHAPE[0] * MESH_SHAPE[1]
+    if not supported or not all(planes_equal.values()) or not all(
+            metrics_equal.values()) or shared_counts != [0, n, 0, 0]:
+        fail(f"the shared bin is not the single-device frame: {out}")
+    block, pallas = out["per_block"], out["pallas"]
+    if (block["launches"] != [n, 0, 0, 0] or block["overflow"] != 0
+            or block["hit_mismatch"] > SHARD_HIT_MISMATCH_MAX
+            or block["min_t_close"] <= SHARD_T_CLOSE_MIN):
+        fail(f"the per-block frame disagrees with the single-device one: "
+             f"{block}")
+    if (pallas["launches"] != [0, 0, 0, n] or pallas["overflow"] != 0
+            or not all(aos_equal.values())
+            or 1.0 - pallas["hit_mismatch"] < STRICT_BINNED_HIT_MIN
+            or pallas["min_t_close"] < STRICT_BINNED_T_CLOSE_MIN
+            or pallas["min_t_within_leaf_radius"] < STRICT_BINNED_T_LEAF_MIN):
+        fail(f"the pallas mesh disagrees with the single-device pallas "
+             f"frame: {pallas}")
+    if frame_counts != [0, n, 0, 0] or frame_err > COMPOSITE_ERR_MAX:
+        fail(f"render_frame_sharded disagrees with render_frame: {out}")
+    return total
+
+
+def sharded_frameless_phase(torch, dev, scene, cfg, card, reset_counts,
+                            read_counts):
+    """`sharded_frameless`: every cell of the 2x2 mesh refreshes 256
+    Sobol tiles of its own block a step (K2 `shade_only`, one launch a
+    cell) on the trimmed table until all 2,040 tiles are covered; the
+    state must equal the single-device frameless state tile for tile, bit
+    for bit. A cursor started at 2^32 - 256 carries into its hi word.
+    Returns the launches."""
+    from sphereflake_tpu_torch.parallel import (
+        make_mesh,
+        sharded_tiles_as_single,
+        sharded_tiles_init,
+        sharded_tiles_step,
+    )
+    from sphereflake_tpu_torch.runtime.progressive import (
+        progressive_prepare_trimmed,
+        progressive_tiles_init,
+        progressive_tiles_step,
+    )
+
+    t_phase = time.perf_counter()
+    mesh = make_mesh([dev] * (MESH_SHAPE[0] * MESH_SHAPE[1]),
+                     shape=MESH_SHAPE)
+    n = mesh.size
+    n_tiles = cfg.tiles_x * cfg.tiles_y
+    reset_counts()
+    prepared = progressive_prepare_trimmed(scene, cfg, device=dev)
+    prep_counts = read_counts()
+    reset_counts()
+    st = sharded_tiles_init(cfg, mesh, seed=1)
+    steps = 0
+    while steps < SHARD_MAX_STEPS and int(st.covered.sum()) < n_tiles:
+        st = sharded_tiles_step(st, scene, cfg, mesh,
+                                tiles_per_device=SHARD_TILES_PER_DEVICE,
+                                prepared=prepared)
+        steps += 1
+    step_counts = read_counts()
+    covered = int(st.covered.sum())
+    one = progressive_tiles_init(cfg, seed=1, device=dev)
+    for _ in range(GATE_STEPS):
+        one = progressive_tiles_step(one, scene, cfg,
+                                     tiles_per_step=TILES_PER_STEP,
+                                     prepared=prepared)
+    view = sharded_tiles_as_single(st)
+    rows_equal = bool(torch.equal(view.rows, one.rows))
+    # The hi-word carry: every cell's cursor at 2^32 - 256.
+    wrap = sharded_tiles_init(cfg, mesh, seed=1)
+    wrap.sample_lo.fill_(2**32 - SHARD_TILES_PER_DEVICE)
+    reset_counts()
+    wrap = sharded_tiles_step(wrap, scene, cfg, mesh,
+                              tiles_per_device=SHARD_TILES_PER_DEVICE,
+                              prepared=prepared)
+    wrap_counts = read_counts()
+    carried = (wrap.sample_lo.tolist(), wrap.sample_hi.tolist())
+
+    def sharded_step():
+        sharded_tiles_step(st, scene, cfg, mesh,
+                           tiles_per_device=SHARD_TILES_PER_DEVICE,
+                           prepared=prepared)
+
+    def single_step():
+        progressive_tiles_step(one, scene, cfg, tiles_per_step=TILES_PER_STEP,
+                               prepared=prepared)
+
+    out = dict(
+        tiles_per_device=SHARD_TILES_PER_DEVICE, mesh=list(MESH_SHAPE),
+        steps=steps, covered=covered, tiles=n_tiles,
+        overflow=int(st.overflow), prepare_launches=prep_counts,
+        launches=step_counts, equals_single_device=rows_equal,
+        single_device_steps=GATE_STEPS, samples_traced=st.samples_traced,
+        wrap=dict(start_lo=2**32 - SHARD_TILES_PER_DEVICE,
+                  sample_lo=carried[0], sample_hi=carried[1],
+                  launches=wrap_counts),
+        sharded_step_ms=event_ms(torch, sharded_step, 10),
+        single_step_ms=event_ms(torch, single_step, 10),
+        card=card, seconds=time.perf_counter() - t_phase,
+    )
+    emit("sharded_frameless", **out)
+    if (covered != n_tiles or int(st.overflow) or not rows_equal
+            or step_counts != [0, n * steps, 0, 0]):
+        fail(f"the sharded frameless state is off: {out}")
+    my, mx = MESH_SHAPE
+    if carried != ([[0] * mx] * my, [[1] * mx] * my) or wrap_counts != [
+            0, n, 0, 0]:
+        fail(f"the cursor did not carry into its hi word: {out['wrap']}")
+    return [a + b + c for a, b, c in zip(prep_counts, step_counts,
+                                         wrap_counts)]
+
+
+def frames_dp_phase(torch, dev, scene, cfg, card, reset_counts, read_counts):
+    """`frames_dp`: four orbit cameras rendered by `render_frames_dp` over
+    a 1D mesh of the card, equal to four sequential `render_frame` calls
+    bit for bit; one K1 launch a frame. Returns the launches."""
+    from sphereflake_tpu_torch.parallel import (
+        make_frame_mesh,
+        render_frames_dp,
+    )
+    from sphereflake_tpu_torch.render import render_frame
+    from sphereflake_tpu_torch.runtime.animate import _orbit_scene
+
+    t_phase = time.perf_counter()
+    mesh = make_frame_mesh([dev] * DP_FRAMES)
+    radius = float(torch.linalg.vector_norm(scene.camera.position))
+    scenes = [_orbit_scene(scene, scene.camera, radius, i, DP_FRAMES)
+              for i in range(DP_FRAMES)]
+    with torch.no_grad():
+        reset_counts()
+        images, ovf = render_frames_dp(scenes, cfg, mesh)
+        counts = read_counts()
+        seq = [render_frame(s, cfg, device=dev)[0] for s in scenes]
+        equal = [bool(torch.equal(images[i], seq[i]))
+                 for i in range(DP_FRAMES)]
+        dp_ms = event_ms(torch, lambda: render_frames_dp(scenes, cfg, mesh), 2)
+        seq_ms = event_ms(torch, lambda: [
+            render_frame(s, cfg, device=dev) for s in scenes], 2)
+    out = dict(frames=DP_FRAMES, launches=counts, overflow=ovf.tolist(),
+               equal_to_sequential=equal,
+               distinct=bool(float((images[0] - images[1]).abs().max()) > 0),
+               dp_ms=dp_ms, sequential_ms=seq_ms, card=card,
+               seconds=time.perf_counter() - t_phase)
+    emit("frames_dp", **out)
+    if (not all(equal) or any(ovf.tolist()) or counts != [DP_FRAMES, 0, 0, 0]
+            or not out["distinct"]):
+        fail(f"render_frames_dp is not the sequential frames: {out}")
+    return counts
+
+
+def sharded_fit_phase(torch, dev, scene, cfg, card, reset_counts,
+                      read_counts):
+    """`sharded_fit`: `fit_step_sharded` at 1080p depth 6 over the 2x2
+    mesh against the single-device step (loss and the 15 leaf
+    gradients), then `fit(mesh=...)` for 2 steps, whose loss must
+    descend. Returns the launches."""
+    from sphereflake_tpu_torch.fit import fit, fit_step
+    from sphereflake_tpu_torch.parallel import fit_step_sharded, make_mesh
+    from sphereflake_tpu_torch.render import render_gbuffer
+
+    t_phase = time.perf_counter()
+    mesh = make_mesh([dev] * (MESH_SHAPE[0] * MESH_SHAPE[1]),
+                     shape=MESH_SHAPE)
+    n = mesh.size
+    with torch.no_grad():
+        target = render_gbuffer(scene, cfg, device=dev)
+    start = perturbed(scene, 0.004, 0.004)
+    total = [0, 0, 0, 0]
+    reset_counts()
+    t0 = time.perf_counter()
+    loss_s, g_s = fit_step_sharded(start, target.position, target.normal,
+                                   cfg, mesh)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    step_counts = read_counts()
+    t0 = time.perf_counter()
+    loss_1, g_1 = fit_step(start, target.position, target.normal, cfg,
+                           device=dev)
+    torch.cuda.synchronize()
+    single_ms = (time.perf_counter() - t0) * 1e3
+    rel = []
+    grads_ok = True
+    for a, b in zip(g_s.leaves(), g_1.leaves()):
+        err = (a - b).abs()
+        grads_ok &= bool((err <= FIT_GRAD_ATOL + FIT_GRAD_RTOL * b.abs())
+                         .all())
+        rel.append(float((err / b.abs().clamp_min(1e-30)).max()))
+    reset_counts()
+    res = fit(start, target.position, target.normal, cfg, steps=2,
+              learning_rate=2e-3, mesh=mesh)
+    fit_counts = read_counts()
+    for counts in (step_counts, fit_counts):
+        total = [t + c for t, c in zip(total, counts)]
+    out = dict(
+        mesh=list(MESH_SHAPE), loss=float(loss_s), single_loss=float(loss_1),
+        leaf_grad_max_rel_err=rel, grads_within=grads_ok,
+        step0_grad=dict(yaw=float(g_s.camera.yaw),
+                        single_yaw=float(g_1.camera.yaw)),
+        step_launches=step_counts, fit_losses=res.losses,
+        fit_launches=fit_counts, step_ms=step_ms, single_step_ms=single_ms,
+        limits=dict(loss_rtol=FIT_LOSS_RTOL, grad_rtol=FIT_GRAD_RTOL,
+                    grad_atol=FIT_GRAD_ATOL),
+        card=card, seconds=time.perf_counter() - t_phase,
+    )
+    emit("sharded_fit", **out)
+    if (abs(float(loss_s) - float(loss_1)) > FIT_LOSS_RTOL * abs(float(loss_1))
+            or not grads_ok or step_counts != [n, 0, 0, 0]):
+        fail(f"the sharded fit step disagrees with the single-device one: "
+             f"{out}")
+    if not res.losses[1] < res.losses[0] or fit_counts != [2 * n, 0, 0, 0]:
+        fail(f"fit(mesh=...) does not descend: {out}")
+    return total
+
+
+def multiprocess_phase(torch, dev, scene, cfg, card):
+    """`multiprocess`: two processes on the one card over gloo
+    (`python -m sphereflake_tpu_torch.parallel.worker`), global mesh 2x1
+    at 1080p depth 6: each renders its row-band (the shared bin across
+    the processes) and runs one sharded fit step. The stitched min_t
+    must equal the single-process sharded frame bit for bit, the loss
+    and the gradient fingerprint must be equal on both ranks, and a
+    failed rank fails the phase. Returns the ranks' launches."""
+    import socket
+
+    import numpy as np
+
+    from sphereflake_tpu_torch.parallel import make_mesh, render_gbuffer_sharded
+
+    t_phase = time.perf_counter()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ,
+           "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [
+            subprocess.Popen(
+                [sys.executable, "-m", "sphereflake_tpu_torch.parallel.worker",
+                 tmp, "--coordinator", f"127.0.0.1:{port}", "--nprocs", "2",
+                 "--pid", str(pid), "--device", dev.type, "--algorithm",
+                 "binned", "--tile", "32x32", "--width", str(cfg.width),
+                 "--height-per-device", str(cfg.height // 2), "--depth",
+                 str(cfg.max_depth), "--max-frontier", str(cfg.max_frontier)],
+                env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True, cwd=root,
+            )
+            for pid in range(2)
+        ]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=WORKER_TIMEOUT)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        rcs = [p.returncode for p in procs]
+        if rcs != [0, 0]:
+            fail(f"a worker failed (rcs {rcs}): "
+                 + " | ".join(log[-1500:] for log in logs))
+        ranks = [dict(np.load(os.path.join(tmp, f"worker_{r}.npz")))
+                 for r in range(2)]
+    rows = {}
+    for r in ranks:
+        for k, v in r.items():
+            if k.startswith("minrow_"):
+                rows[int(k.split("_")[1])] = v
+    stitched = np.concatenate([rows[k] for k in sorted(rows)], axis=0)
+    with torch.no_grad():
+        single = render_gbuffer_sharded(
+            scene, cfg, make_mesh([dev, dev], shape=(2, 1)))
+    equal = bool(np.array_equal(stitched, single.min_t.cpu().numpy()))
+    out = dict(
+        processes=2, backend="gloo", mesh=[2, 1], row_starts=sorted(rows),
+        stitched_equals_single_process=equal,
+        loss=[float(r["loss"]) for r in ranks],
+        fingerprints_equal=bool(np.array_equal(
+            ranks[0]["grad_fingerprint"], ranks[1]["grad_fingerprint"])),
+        launches=[r["launches"].tolist() for r in ranks],
+        render_launches=[r["render_launches"].tolist() for r in ranks],
+        overflow=[int(r["overflow"]) for r in ranks],
+        worker_seconds=[float(r["seconds"]) for r in ranks],
+        card=card, seconds=time.perf_counter() - t_phase,
+    )
+    emit("multiprocess", **out)
+    if (not equal or out["loss"][0] != out["loss"][1]
+            or not out["fingerprints_equal"] or any(out["overflow"])
+            or out["launches"] != [[1, 2, 0, 0]] * 2):
+        fail(f"the two-process run disagrees: {out}")
+    return [int(sum(r["launches"][i] for r in ranks)) for i in range(4)]
+
+
+def _paeth_filtered(rgb):
+    """The scanlines PNG filter 4 (Paeth) makes of `rgb`, each led by its
+    filter byte — what the native encoder deflates."""
+    import numpy as np
+
+    h, w, _ = rgb.shape
+    cur = rgb.reshape(h, w * 3).astype(np.int16)
+    up = np.zeros_like(cur)
+    up[1:] = cur[:-1]
+    left = np.zeros_like(cur)
+    left[:, 3:] = cur[:, :-3]
+    upleft = np.zeros_like(cur)
+    upleft[:, 3:] = up[:, :-3]
+    p = left + up - upleft
+    pa, pb, pc = abs(p - left), abs(p - up), abs(p - upleft)
+    pred = np.where((pa <= pb) & (pa <= pc), left,
+                    np.where(pb <= pc, up, upleft))
+    out = ((cur - pred) & 0xFF).astype(np.uint8)
+    return np.concatenate([np.full((h, 1), 4, np.uint8), out], axis=1)
+
+
+def _inflated_idat(data: bytes):
+    import struct
+    import zlib
+
+    pos, idat = 8, b""
+    while pos < len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        if data[pos + 4:pos + 8] == b"IDAT":
+            idat += data[pos + 8:pos + 8 + length]
+        pos += 12 + length
+    return zlib.decompress(idat)
+
+
+def native_phase(torch, dev, scene, cfg, card, cli_main, reset_counts,
+                 read_counts, size_args):
+    """`native`: the host library is built from the port's sources (a
+    missing compiler fails here), `write_png` goes through it, the 1080p
+    composite encoded natively and by the Python encoder decodes to the
+    same pixels (each stream inflates to its filter of the image: Paeth
+    for the native encoder, none for Python's, and unfiltering inverts
+    the filter), both encode times; then `animate_ms_per_frame` of a
+    3-frame `--animate` run with PNGs written natively. Returns the
+    launches."""
+    import numpy as np
+
+    from sphereflake_tpu_torch.render import render_frame
+    from sphereflake_tpu_torch.runtime import native
+    from sphereflake_tpu_torch.utils import image as image_mod
+
+    t_phase = time.perf_counter()
+    if not native.available():
+        fail("no C++ compiler: the native host library cannot be built")
+    lib = native.build()  # the one `write_png` has used since its first PNG
+    # A build from scratch, timed, into a directory of its own.
+    with tempfile.TemporaryDirectory() as tmp:
+        saved = os.environ.get("SPHEREFLAKE_TORCH_BUILD_DIR")
+        os.environ["SPHEREFLAKE_TORCH_BUILD_DIR"] = tmp
+        try:
+            t0 = time.perf_counter()
+            native.build()
+            build_s = time.perf_counter() - t0
+        finally:
+            if saved is None:
+                del os.environ["SPHEREFLAKE_TORCH_BUILD_DIR"]
+            else:
+                os.environ["SPHEREFLAKE_TORCH_BUILD_DIR"] = saved
+    with torch.no_grad():
+        image, _ = render_frame(scene, cfg, device=dev)
+    rgb = image_mod.to_uint8(image)
+    t0 = time.perf_counter()
+    data_native = native.encode_png_native(rgb)
+    native_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    data_python = image_mod.encode_png_python(rgb)
+    python_ms = (time.perf_counter() - t0) * 1e3
+    h, w, _ = rgb.shape
+    plain = np.concatenate([np.zeros((h, 1), np.uint8),
+                            rgb.reshape(h, w * 3)], axis=1)
+    native_ok = _inflated_idat(data_native) == _paeth_filtered(rgb).tobytes()
+    python_ok = _inflated_idat(data_python) == plain.tobytes()
+    calls = []
+    real = native.encode_png_native
+
+    def counted(x):
+        calls.append(x.shape)
+        return real(x)
+
+    native.encode_png_native = counted
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            image_mod.write_png(os.path.join(tmp, "frame.png"), image)
+            reset_counts()
+            t0 = time.perf_counter()
+            rc = cli_main(size_args + ["--animate", str(ANIMATE_FRAMES),
+                                       "-o", os.path.join(tmp, "a.png")])
+            anim_s = time.perf_counter() - t0
+            counts = read_counts()
+    finally:
+        native.encode_png_native = real
+    out = dict(
+        library=os.path.relpath(lib, os.path.dirname(os.path.abspath(
+            __file__))),
+        build_seconds=build_s, write_png_native_calls=len(calls),
+        png_bytes=dict(native=len(data_native), python=len(data_python)),
+        decodes_to_same_pixels=dict(native=native_ok, python=python_ok),
+        encode_ms=dict(native=native_ms, python=python_ms),
+        animate=dict(rc=rc, frames=ANIMATE_FRAMES, launches=counts,
+                     animate_ms_per_frame=anim_s * 1e3 / ANIMATE_FRAMES),
+        card=card, seconds=time.perf_counter() - t_phase,
+    )
+    emit("native", **out)
+    if not (native_ok and python_ok) or len(calls) != 1 + ANIMATE_FRAMES:
+        fail(f"the native PNG path is off: {out}")
+    if rc != 0 or counts != [ANIMATE_FRAMES, 0, 0, 0]:
+        fail(f"--animate with native PNGs failed: {out}")
+    return counts
+
+
 def main(argv) -> int:
     try:
         import torch
@@ -2638,6 +3206,25 @@ def main(argv) -> int:
     path_launches[0] += profile_phase(cli_main, reset_counts, read_counts,
                                       size_args)
 
+    # ---- phase 4e: the multi-device layer and the native host library
+    multi = [0, 0, 0, 0]
+    for counts in (
+        sharded_phase(torch, dev, scene, cfg, card, reset_counts,
+                      read_counts),
+        sharded_frameless_phase(torch, dev, scene, cfg, card, reset_counts,
+                                read_counts),
+        frames_dp_phase(torch, dev, scene, cfg, card, reset_counts,
+                        read_counts),
+        sharded_fit_phase(torch, dev, scene, cfg, card, reset_counts,
+                          read_counts),
+        multiprocess_phase(torch, dev, scene, cfg, card),
+        native_phase(torch, dev, scene, cfg, card, cli_main, reset_counts,
+                     read_counts, size_args),
+    ):
+        multi = [m + c for m, c in zip(multi, counts)]
+    path_launches = [p + m for p, m in zip(path_launches, multi)]
+    k4_path_launches += multi[3]
+
     # ---- phase 5: the kernels line, the card, the verdict ----------
     # The three launch modes of one source, and the traversal kernel.
     # `launches` sums the main paths' runs (each counted from 0: frames,
@@ -2645,8 +3232,9 @@ def main(argv) -> int:
     # frames and the CLI's pallas sample unit; the 4K fit and the
     # 1080p gradients with the kernels; the pallas side of the
     # pallas-vs-strict gradient check; the full-frame camera paths and
-    # the profiled CLI run); no single PyTorch call computes any of
-    # them, so `library_ms` is null.
+    # the profiled CLI run; the multi-device phases, the two workers'
+    # launches included); no single PyTorch call computes any of them,
+    # so `library_ms` is null.
     source = "sphereflake_tpu_torch/csrc/pairs_kernel.cu"
     print(json.dumps({"kernels": [
         {

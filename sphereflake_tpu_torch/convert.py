@@ -120,7 +120,8 @@ def leaves_to_numpy(tree) -> list:
     dataclass (a scene, a frameless state, `fit.AdamState`) by its
     fields in order, lists and tuples in order, None (optax's
     `EmptyState`) as no leaf. A tensor is one leaf; a Python int — the
-    frameless cursor — is `cursor_to_numpy`'s uint32 scalar."""
+    frameless cursor — is `cursor_to_numpy`'s uint32 scalar, and a
+    cursor field held as an int64 tensor a uint32 array."""
     if isinstance(tree, torch.Tensor):
         return [tree.detach().cpu().numpy()]
     if tree is None:
@@ -132,16 +133,32 @@ def leaves_to_numpy(tree) -> list:
     if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
         return [
             a for f in dataclasses.fields(tree)
-            for a in leaves_to_numpy(getattr(tree, f.name))
+            for a in (
+                [_cursor_tensor_to_numpy(getattr(tree, f.name))]
+                if _is_cursor_tensor(f.name, getattr(tree, f.name))
+                else leaves_to_numpy(getattr(tree, f.name))
+            )
         ]
     raise TypeError(f"no leaves for a {type(tree).__name__}")
+
+
+def _is_cursor_tensor(name: str, value) -> bool:
+    """A cursor field held as a tensor of uint32 words in int64 (the
+    sharded frameless state's per-cell cursors)."""
+    return name in _CURSOR_FIELDS and isinstance(value, torch.Tensor)
+
+
+def _cursor_tensor_to_numpy(x: torch.Tensor) -> np.ndarray:
+    """The reference's uint32 array of a cursor tensor."""
+    return (x.detach().cpu().numpy() & 0xFFFFFFFF).astype(np.uint32)
 
 
 def leaves_from_numpy(template, arrays):
     """Inverse of `leaves_to_numpy`: `template`'s structure filled with
     `arrays` in order. A tensor leaf takes the array's dtype and shape on
     the template leaf's device; an int leaf is a cursor word
-    (`cursor_from_numpy`)."""
+    (`cursor_from_numpy`), and a cursor field held as a tensor takes the
+    words as int64."""
     it = iter(arrays)
 
     def fill(t):
@@ -154,7 +171,15 @@ def leaves_from_numpy(template, arrays):
         if isinstance(t, (list, tuple)):
             return type(t)(fill(x) for x in t)
         return dataclasses.replace(t, **{
-            f.name: fill(getattr(t, f.name)) for f in dataclasses.fields(t)
+            f.name: (
+                torch.tensor(
+                    np.asarray(next(it)).astype(np.int64) & 0xFFFFFFFF,
+                    device=getattr(t, f.name).device,
+                )
+                if _is_cursor_tensor(f.name, getattr(t, f.name))
+                else fill(getattr(t, f.name))
+            )
+            for f in dataclasses.fields(t)
         })
 
     return fill(template)

@@ -13,9 +13,10 @@ optax's Adam becomes `torch.optim.Adam` over the scene's 15 leaves
 the reference CLI's `optax.cosine_decay_schedule(lr, steps)` becomes
 `adam(lr, steps)`, a `LambdaLR` with the same factor. The optimizer
 state travels as `AdamState`, optax's leaf layout, so a checkpoint
-passes between the two packages (`runtime/checkpoint.py`).
-
-The sharded fit (the reference's `mesh` argument) is not ported.
+passes between the two packages (`runtime/checkpoint.py`). With a
+device mesh (`parallel.make_mesh`) the G-buffer loss goes through
+`parallel.fit_step_sharded` and the image loss differentiates
+`parallel.render_frame_sharded`.
 """
 
 from __future__ import annotations
@@ -221,6 +222,8 @@ def fit(
     `optimizer` builds `(torch.optim.Adam, scheduler or None)` over a
     list of leaf tensors, resuming from an `AdamState` or None
     (`adam(...)`; default `adam(learning_rate)`).
+    `mesh` switches to the sharded step (the leaves then live on the
+    mesh's home device, not `device`).
     `param_filter` masks the gradient tree (e.g. fit only the camera); a
     masked leaf gets a zero gradient, so every leaf's Adam step count
     stays optax's one `count`. Passing `opt_state` (an `AdamState`)
@@ -230,23 +233,37 @@ def fit(
     so the last Adam iterate can sit above the best one). `loss="image"`
     fits against `target_image` through the full post chain
     (`image_loss`), which SSAO-parameter fitting needs."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the sharded fit (mesh=...) is not ported to "
-            "sphereflake_tpu_torch yet (ROADMAP.md M11)"
-        )
-    dev = resolve_device(device)
+    dev = mesh.home if mesh is not None else resolve_device(device)
     if loss == "image":
         assert target_image is not None, "loss='image' needs target_image"
         target_image = target_image.to(dev)
+        if mesh is not None:
+            from sphereflake_tpu_torch.parallel import render_frame_sharded
 
-        def loss_fn(s):
-            return image_loss(s, target_image, cfg, device=dev)
+            def loss_fn(s):
+                image, _gb = render_frame_sharded(s, cfg, mesh)
+                return (torch.sum((image - target_image) ** 2)
+                        / (cfg.width * cfg.height))
+        else:
+            def loss_fn(s):
+                return image_loss(s, target_image, cfg, device=dev)
+
+        def step_fn(s):
+            return _value_and_grad(loss_fn, s)
+    elif mesh is not None:
+        from sphereflake_tpu_torch.parallel import fit_step_sharded
+
+        def step_fn(s):
+            return fit_step_sharded(s, target_pos, target_nrm, cfg, mesh)
     else:
         target_pos, target_nrm = target_pos.to(dev), target_nrm.to(dev)
 
-        def loss_fn(s):
-            return gbuffer_loss(s, target_pos, target_nrm, cfg, device=dev)
+        def step_fn(s):
+            return _value_and_grad(
+                lambda x: gbuffer_loss(x, target_pos, target_nrm, cfg,
+                                       device=dev),
+                s,
+            )
 
     leaves = [
         x.detach().to(dev).clone().requires_grad_(True)
@@ -260,9 +277,7 @@ def fit(
     losses: list[float] = []
     best_scene, best_loss = None, float("inf")
     for i in range(steps):
-        value, grads = _value_and_grad(
-            loss_fn, SceneParams.from_leaves(leaves)
-        )
+        value, grads = step_fn(SceneParams.from_leaves(leaves))
         if param_filter is not None:
             grads = param_filter(grads)
         losses.append(float(value))

@@ -985,10 +985,12 @@ def trace_pairs_pallas(tile_dirs, pairs, starts, lens, cfg: RenderConfig):
     )
 
 
-def binned_pairs(scene, cfg: RenderConfig, root, templates, frame=None):
-    """Global expansion + binning: (pairs, starts, lens, (n_pairs,
-    overflow)) — overflow counts pair-table AND deep-level compaction
-    drops.
+def frame_nodes(scene, cfg: RenderConfig, root, templates, frame=None):
+    """The replicated front of the bin: the global expansion culled by
+    this block's frustum, the corner-ray basis and the block's corner
+    rays. Returns (nodes, expansion overflow, minv, corners) — what
+    `bin_nodes` takes (`binned_pairs`), or `bin_geometry` and a windowed
+    decode (the shared bin, `parallel/shared_bin.py`).
 
     `frame` = (frame_w, frame_h, x_off, y_off) when cfg describes one
     block (band) of a larger frame (see `bin_nodes`)."""
@@ -1020,6 +1022,19 @@ def binned_pairs(scene, cfg: RenderConfig, root, templates, frame=None):
     base = tl - origin
     corners = torch.stack(
         [base + u * ex + v * ey for u in (u0, u1) for v in (v0, v1)]
+    )
+    return nodes, exp_overflow, minv, corners
+
+
+def binned_pairs(scene, cfg: RenderConfig, root, templates, frame=None):
+    """Global expansion + binning: (pairs, starts, lens, (n_pairs,
+    overflow)) — overflow counts pair-table AND deep-level compaction
+    drops.
+
+    `frame` = (frame_w, frame_h, x_off, y_off) when cfg describes one
+    block (band) of a larger frame (see `bin_nodes`)."""
+    nodes, exp_overflow, minv, corners = frame_nodes(
+        scene, cfg, root, templates, frame
     )
     pairs, starts, lens, (n_pairs, pair_ovf) = bin_nodes(
         nodes, minv, cfg, frame=frame, corners=corners
@@ -1121,7 +1136,8 @@ class BinnedGBuffer(torch.autograd.Function):
     (`_gbuffer_primal` + `_gbuffer_jvp`) as an autograd Function over
     the scene's 15 leaves.
 
-    forward: the kernel's primal (`_gbuffer_primal`), with no graph; it
+    forward: the kernel's primal (`_gbuffer_primal`, or the one named
+    in the statics: the shared bin's), with no graph; it
     saves the path codes and the leaves. backward: rebuilds
     `_gbuffer_recompute` under grad from the saved, detached codes and
     returns its vector-Jacobian product into the leaves — the
@@ -1135,9 +1151,9 @@ class BinnedGBuffer(torch.autograd.Function):
     def forward(statics, offs, *leaves):
         from sphereflake_tpu_torch.config import SceneParams
 
-        cfg, frame_w, frame_h = statics
+        cfg, frame_w, frame_h, primal = statics
         scene = SceneParams.from_leaves(leaves)
-        outs = _gbuffer_primal(cfg, frame_w, frame_h, scene, offs)
+        outs = primal(cfg, frame_w, frame_h, scene, offs)
         # A one-tile block's rows are views of the kernel output; forward
         # mode needs outputs that own their storage.
         return tuple(o.clone() if o._is_view() else o for o in outs)
@@ -1155,7 +1171,7 @@ class BinnedGBuffer(torch.autograd.Function):
     def _recompute(ctx, leaves):
         from sphereflake_tpu_torch.config import SceneParams
 
-        cfg, frame_w, frame_h = ctx.statics
+        cfg, frame_w, frame_h, _primal = ctx.statics
         lo, hi = ctx.saved_tensors[:2]
         return _gbuffer_recompute(
             cfg, frame_w, frame_h, SceneParams.from_leaves(leaves),
@@ -1202,7 +1218,8 @@ class BinnedGBuffer(torch.autograd.Function):
         return d7 + (None,) * 5
 
 
-def binned_gbuffer(cfg: RenderConfig, frame_w, frame_h, scene, offs):
+def binned_gbuffer(cfg: RenderConfig, frame_w, frame_h, scene, offs,
+                   primal=_gbuffer_primal):
     """The production forward pass of one block: expansion + binning in
     plain torch, then ONE fused kernel call computes raygen + binned
     ray tests + G-buffer shading. Differentiable through
@@ -1214,7 +1231,10 @@ def binned_gbuffer(cfg: RenderConfig, frame_w, frame_h, scene, offs):
     hit (f32 0/1), code_lo, code_hi), then metrics (int32 [T, 1, 4])
     and the pair/compaction overflow (0-d int32); min_t/pos/nrm carry
     derivatives.
+
+    `primal` computes those outputs without a graph; another primal of
+    the same outputs (`parallel.shared_bin`'s) shares the recompute.
     """
     return BinnedGBuffer.apply(
-        (cfg, frame_w, frame_h), tuple(offs), *scene.leaves()
+        (cfg, frame_w, frame_h, primal), tuple(offs), *scene.leaves()
     )

@@ -129,7 +129,7 @@ def grow_capacity(cfg: RenderConfig) -> RenderConfig:
     return dataclasses.replace(cfg, band_tile_rows=new_rows)
 
 
-def _binned_rows(scene: SceneParams, cfg: RenderConfig, frame):
+def _binned_rows(scene: SceneParams, cfg: RenderConfig, frame, primal=None):
     """Shaded kernel rows [T, 7, 8, 128] (min_t, pos3, nrm3) for cfg's
     full tile grid, plus (depth_reached, nodes_visited, overflow).
 
@@ -137,15 +137,17 @@ def _binned_rows(scene: SceneParams, cfg: RenderConfig, frame):
     block of a larger frame. When `cfg.effective_band_rows` is set
     (explicitly, or automatically for tile counts that would blow the
     pair budget), the grid renders in horizontal bands, one after the
-    other: each band is a further y-offset block of the same frame."""
-    from sphereflake_tpu_torch.ops.binned import binned_gbuffer
+    other: each band is a further y-offset block of the same frame.
+    `primal` replaces the block's forward (`ops.binned.binned_gbuffer`)."""
+    from sphereflake_tpu_torch.ops.binned import _gbuffer_primal, binned_gbuffer
     from sphereflake_tpu_torch.ops.pallas_traversal import depth_reached_soa
 
     fw, fh, x0, y0 = frame
 
     def one(c, y_off):
         (min_t, px, py, pz, nx, ny, nz, _hitf, lo, hi, m, povf) = (
-            binned_gbuffer(c, fw, fh, scene, (x0, y_off))
+            binned_gbuffer(c, fw, fh, scene, (x0, y_off),
+                           primal=primal or _gbuffer_primal)
         )
         Tb = c.tiles_y * c.tiles_x
         rows = torch.movedim(
@@ -182,12 +184,14 @@ def _binned_rows(scene: SceneParams, cfg: RenderConfig, frame):
     )
 
 
-def _render_gbuffer_binned(scene: SceneParams, cfg: RenderConfig) -> GBuffer:
+def _render_gbuffer_binned(scene: SceneParams, cfg: RenderConfig,
+                           primal=None) -> GBuffer:
     """The fused production pipeline: ONE kernel call per band
     computes raygen + binned ray tests + G-buffer shading; torch's
-    remaining jobs are the node binning and the tile->image untiles."""
+    remaining jobs are the node binning and the tile->image untiles.
+    `primal`: see `_binned_rows`."""
     rows, (depth_r, nodes_n, overflow) = _binned_rows(
-        scene, cfg, (cfg.width, cfg.height, 0.0, 0.0)
+        scene, cfg, (cfg.width, cfg.height, 0.0, 0.0), primal
     )
     imgs = _untile_rows(rows, cfg)
     min_t_img = imgs[0]

@@ -18,8 +18,9 @@ levels.
 One intended difference from the reference: on an all-sky frame the
 closest distance is the miss sentinel (3e38), and `animate`'s approach
 holds the camera where the reference would step it by
-`speed_factor * 3e38`. The multi-device forms (`animate(mesh=...)`,
-`animate_frames_dp`) are not ported yet (ROADMAP.md M11).
+`speed_factor * 3e38`. The multi-device forms: `animate(mesh=...)`
+shards every frame over a device mesh, `animate_frames_dp` renders a
+different orbit frame on each device (frame data parallelism).
 """
 
 from __future__ import annotations
@@ -75,6 +76,45 @@ def _orbit_scene(scene, cam0, radius, i, n_frames):
     yaw, pitch = _look_at_origin(pos)
     cam = dataclasses.replace(cam0, position=pos, yaw=yaw, pitch=pitch)
     return dataclasses.replace(scene, camera=cam)
+
+
+def animate_frames_dp(
+    scene: SceneParams,
+    cfg: RenderConfig,
+    n_frames: int,
+    devices,
+) -> Iterator[tuple[np.ndarray, SceneParams]]:
+    """Orbit animation with FRAME data parallelism: each device renders
+    a DIFFERENT full frame per batch (`parallel.render_frames_dp`) — the
+    shape for small frames, where screen-tile sharding of one frame pays
+    its fixed costs once per block. A device may repeat. A batch that
+    overflows is rendered again one rung up the capacity ladder, like
+    the sequential path. Yields (image as a NumPy array, scene) per
+    frame, in order."""
+    from sphereflake_tpu_torch.parallel import (
+        make_frame_mesh,
+        render_frames_dp,
+    )
+    from sphereflake_tpu_torch.render import grow_capacity
+
+    mesh = make_frame_mesh(devices)
+    n_dev = mesh.size
+    scene = scene.to(mesh.home)
+    cam0 = scene.camera
+    radius = float(torch.linalg.vector_norm(cam0.position))
+    for b0 in range(0, n_frames, n_dev):
+        idx = [min(b0 + k, n_frames - 1) for k in range(n_dev)]
+        scenes = [_orbit_scene(scene, cam0, radius, i, n_frames) for i in idx]
+        while True:
+            images, ovf = render_frames_dp(scenes, cfg, mesh)
+            if not int(ovf.sum()):
+                break
+            cfg = grow_capacity(cfg)
+        images = images.cpu().numpy()
+        for k in range(n_dev):
+            if b0 + k >= n_frames:
+                break
+            yield images[k], scenes[k]
 
 
 def frameless_animate(
@@ -205,16 +245,33 @@ def animate(
     the rest of the path. `approach` steps the camera along its forward
     axis by `speed_factor` times the frame's closest distance (the C++
     app's speed law, `main.cpp:213`); on an all-sky frame it holds the
-    camera. `mesh` (sharding every frame over devices) is not ported."""
+    camera. `mesh` shards every frame over a device mesh
+    (`parallel.render_frame_sharded`; the frames live on its home
+    device, not `device`)."""
     from sphereflake_tpu_torch import render
     from sphereflake_tpu_torch.utils.image import shade_normals
 
     if mesh is not None:
-        raise NotImplementedError(
-            "animate(mesh=...) is not ported to sphereflake_tpu_torch yet "
-            "(ROADMAP.md M11)"
+        from sphereflake_tpu_torch.parallel import (
+            render_frame_sharded,
+            render_gbuffer_sharded,
         )
-    dev = resolve_device(device)
+
+        dev = mesh.home
+
+        def render_frame(s, c):
+            return render_frame_sharded(s, c, mesh)
+
+        def render_gbuffer(s, c):
+            return render_gbuffer_sharded(s, c, mesh)
+    else:
+        dev = resolve_device(device)
+
+        def render_frame(s, c):
+            return render.render_frame(s, c, device=dev)
+
+        def render_gbuffer(s, c):
+            return render.render_gbuffer(s, c, device=dev)
     scene = scene.to(dev)
     cam0 = scene.camera
     radius = float(torch.linalg.vector_norm(cam0.position))
@@ -227,10 +284,10 @@ def animate(
 
         while True:
             if composite:
-                image, gb = render.render_frame(scene, cfg, device=dev)
+                image, gb = render_frame(scene, cfg)
                 image = image.cpu().numpy()
             else:
-                gb = render.render_gbuffer(scene, cfg, device=dev)
+                gb = render_gbuffer(scene, cfg)
                 image = shade_normals(gb.normal, gb.hit)
             if not int(gb.metrics.overflow):
                 break

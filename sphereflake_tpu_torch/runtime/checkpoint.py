@@ -14,7 +14,9 @@ in both directions:
   schedule's count);
 - `ProgressiveState` / `TileProgressiveState`: their fields in order;
   the cursor, which the port keeps as host ints, is stored as uint32
-  scalars like the reference's (`convert.leaves_to_numpy`).
+  scalars like the reference's (`convert.leaves_to_numpy`);
+- `parallel.ShardedTileState`: likewise, its per-cell cursors (int64
+  tensors of uint32 words) as uint32 arrays.
 """
 
 from __future__ import annotations

@@ -2,9 +2,10 @@
 
 The C++ app presents frames to a GLFW window (`main.cpp:301-335`); the
 port is headless, so the display path becomes PNG/NPZ output. The
-port's own copy of the reference package's `utils/image.py` (NumPy and
-zlib only), with the pure-Python PNG encoder; tensors are brought to
-the host here.
+port's own copy of the reference package's `utils/image.py`: PNGs go
+through the native C++ encoder (`runtime/native.py`, built at first
+use) wherever a C++ compiler exists, else through the pure-Python zlib
+encoder; tensors are brought to the host here.
 """
 
 from __future__ import annotations
@@ -55,10 +56,16 @@ def encode_png_python(rgb: np.ndarray) -> bytes:
 
 def write_png(path: str, img) -> None:
     """Write a float [H, W, 3] image (or uint8) as PNG."""
+    from sphereflake_tpu_torch.runtime import native
+
     img = _host(img)
     rgb = img if img.dtype == np.uint8 else to_uint8(img)
+    if native.available():
+        data = native.encode_png_native(rgb)
+    else:
+        data = encode_png_python(rgb)
     with open(path, "wb") as f:
-        f.write(encode_png_python(rgb))
+        f.write(data)
 
 
 def write_gbuffer_npz(path: str, position, normal, min_t, image=None) -> None:

@@ -77,9 +77,16 @@ def test_capacity_retry_loop_recovers_from_overflow(tmp_path, capsys):
 
 
 def test_unported_flags_are_not_declared():
+    """Every flag of the reference's CLI is declared: since the
+    multi-device layer is ported, `--mesh`, `--devices`, `--platform`
+    and `--frame-parallel` are too (`tests/test_torch_sharded.py` drives
+    them)."""
     flags = {s for a in build_parser()._actions for s in a.option_strings}
     for flag in ("--mesh", "--devices", "--platform", "--frame-parallel"):
-        assert flag not in flags
+        assert flag in flags
+    platform = next(a for a in build_parser()._actions
+                    if a.dest == "platform")
+    assert tuple(platform.choices) == ("auto", "cpu")
     assert "--device" in flags and "--frames" in flags
     # fitting and checkpoints are ported
     for flag in ("--fit", "--fit-steps", "--fit-lr", "--fit-params",

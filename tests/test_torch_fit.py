@@ -258,9 +258,24 @@ def test_adam_init_leaf_layout():
 
 
 def test_sharded_fit_is_not_ported():
+    """The sharded fit is ported: `fit(mesh=...)` over two CPU cells
+    takes the single-device fit's steps (the blocks' gradients summed in
+    another order: rtol 1e-5)."""
+    from sphereflake_tpu_torch.parallel import make_mesh
+
+    cfg = _cfg()
+    target = render_gbuffer(default_scene("cpu"), cfg, device="cpu")
     scene = default_scene("cpu")
-    with pytest.raises(NotImplementedError, match="M11"):
-        fit(scene, None, None, _cfg(), steps=1, mesh=object(), device="cpu")
+    scene = dataclasses.replace(scene, camera=dataclasses.replace(
+        scene.camera, yaw=scene.camera.yaw + 0.02))
+    mesh = make_mesh(["cpu", "cpu"], shape=(1, 2))
+    got = fit(scene, target.position, target.normal, cfg, steps=2, mesh=mesh)
+    want = fit(scene, target.position, target.normal, cfg, steps=2,
+               device="cpu")
+    np.testing.assert_allclose(got.losses, want.losses, rtol=1e-5)
+    for a, b in zip(got.scene.leaves(), want.scene.leaves()):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
+                                   atol=1e-7)
 
 
 def test_fit_needs_a_card_unless_the_cpu_is_asked_for():

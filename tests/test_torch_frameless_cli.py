@@ -136,8 +136,9 @@ def test_frameless_animate_cli(tmp_path, capsys, mode):
 
 
 def test_full_frame_animate_is_not_ported(tmp_path, capsys):
-    """The full-frame camera path is ported (one PNG per frame); its
-    multi-device form, `animate(mesh=...)`, is not, and says so."""
+    """The full-frame camera path is ported (one PNG per frame), and so
+    is its multi-device form: `animate(mesh=...)` over two CPU cells
+    gives the single-device frame."""
     rc = main(_common("--animate", "2", "-o", str(tmp_path / "n.png")))
     assert rc == 0
     assert "animate: 2 frames (orbit)" in capsys.readouterr().out
@@ -146,11 +147,16 @@ def test_full_frame_animate_is_not_ported(tmp_path, capsys):
     ]
     cfg = PortConfig(width=64, height=32, max_depth=1, tile_h=32, tile_w=32,
                      algorithm="binned")
-    frames = port_animate.animate(
-        port_scene(default_scene()), cfg, 1, mesh=object(), device="cpu"
+    from sphereflake_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(["cpu", "cpu"], shape=(1, 2))
+    (sharded, _), = port_animate.animate(
+        port_scene(default_scene()), cfg, 1, mesh=mesh
     )
-    with pytest.raises(NotImplementedError, match="M11"):
-        next(frames)
+    (single, _), = port_animate.animate(
+        port_scene(default_scene()), cfg, 1, device="cpu"
+    )
+    np.testing.assert_array_equal(sharded, single)
 
 
 def _always_overflowing(monkeypatch):
