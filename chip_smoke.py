@@ -65,7 +65,12 @@ card. Phases, each printing one or more JSON lines:
    `--animate` (orbit, approach; one pair-kernel launch a render) and an
    approach from an all-sky pose, which must hold the camera; the
    CLI's `--profile`, whose trace must name the pair kernel's walk;
-7. the `kernels` line, the card line, and the final `ok` line.
+7. the reference's measurement programs: the headline bench
+   (`python -m sphereflake_tpu_torch.bench`, in-process, with its gates
+   and launches), large frames (4096^2 `lean_bands` == `render_gbuffer`
+   bit for bit, 8192^2, 16384^2 at depths 6 and 8; warm times, peak
+   memory) and the one-card scaling projection (both modes, loops cut);
+8. the `kernels` line, the card line, and the final `ok` line.
 
 Any failed check exits non-zero. Without a CUDA device, or outside the
 repository (no `sphereflake_tpu_torch` package beside it), it exits 1
@@ -702,28 +707,62 @@ def perturbed(scene, dyaw, dratio=0.0):
     )
 
 
+def band_vs_plain(torch, scene, cfg, band: int = -1):
+    """K1 against its plain version on band `band` of cfg's banded frame,
+    as `render.band_layout` cuts it (the last band by default: the
+    largest y offset), on the port's own front end for that band: rows
+    and metrics bit for bit, the rows' agreement and the band's shape."""
+    from sphereflake_tpu_torch.models.sphereflake import (
+        child_templates,
+        root_frame,
+    )
+    from sphereflake_tpu_torch.ops import binned
+    from sphereflake_tpu_torch.render import band_layout
+
+    bcfg, offsets = band_layout(cfg, (cfg.width, cfg.height, 0.0, 0.0))
+    frame = (cfg.width, cfg.height, 0.0, offsets[band])
+    with torch.no_grad():
+        pairs, starts, lens, (n_pairs, ovf) = binned.binned_pairs(
+            scene, bcfg, root_frame(scene.camera.position),
+            child_templates(scene.fractal), frame=frame,
+        )
+        cam = binned.camera_vector(scene, bcfg, frame=frame)
+        out_k, m_k = binned.trace_pairs_fused_soa(cam, pairs, starts, lens,
+                                                  bcfg)
+        torch.cuda.synchronize()
+        out_p, m_p = binned.trace_pairs_fused_plain(cam, pairs, starts, lens,
+                                                    bcfg)
+    result = compare_rows(torch, out_k, out_p, deep=bcfg.max_depth >= 7)
+    result.update(
+        bits_equal=bits_equal(torch, out_k, out_p),
+        metrics_equal=bool(torch.equal(m_k, m_p)),
+        rows=int(out_k.shape[1]),
+        shape=dict(tiles=int(out_k.shape[0]), frame_width=cfg.width,
+                   frame_height=cfg.height, depth=cfg.max_depth,
+                   band=band % len(offsets), bands=len(offsets),
+                   y_off=frame[3], camera_offsets=cam[12:14].tolist(),
+                   pair_rows=int(pairs.shape[0]), n_pairs=int(n_pairs),
+                   max_segment=int(lens.max()), overflow=int(ovf)),
+    )
+    return result
+
+
 def band_checks(torch, scene, cfg):
-    """The banded frame of `cfg` band by band, as `render._binned_rows`
+    """The banded frame of `cfg` band by band, as `render.band_layout`
     cuts it: K1 against its plain version on the last band (the largest
     y offset), and on every band the backward's recompute
     (`_gbuffer_recompute`, fed K1's codes) against K1's own rows: the
     same hits, and min_t and position close on the hits (the normal is
     reported).
     Returns (K1 vs plain of the last band, per-band recompute stats)."""
-    from sphereflake_tpu_torch.models.sphereflake import (
-        child_templates,
-        root_frame,
-    )
     from sphereflake_tpu_torch.ops import binned
+    from sphereflake_tpu_torch.render import band_layout
 
-    band_px = cfg.effective_band_rows * cfg.tile_h
-    n_bands = cfg.tiles_y // cfg.effective_band_rows
-    bcfg = dataclasses.replace(cfg, height=band_px, band_tile_rows=None,
-                               width=cfg.padded_width)
+    bcfg, offsets = band_layout(cfg, (cfg.width, cfg.height, 0.0, 0.0))
     per_band = []
     with torch.no_grad():
-        for b in range(n_bands):
-            offs = (0.0, float(b * band_px))
+        for y_off in offsets:
+            offs = (0.0, y_off)
             outs = binned._gbuffer_primal(bcfg, cfg.width, cfg.height, scene,
                                           offs)
             rec = binned._gbuffer_recompute(bcfg, cfg.width, cfg.height,
@@ -747,27 +786,7 @@ def band_checks(torch, scene, cfg):
                     (a - k).abs()[hit].max() for a, k in zip(rec[4:7], outs[4:7])
                 )),
             ))
-        frame = (cfg.width, cfg.height, 0.0, float((n_bands - 1) * band_px))
-        root = root_frame(scene.camera.position)
-        pairs, starts, lens, (n_pairs, ovf) = binned.binned_pairs(
-            scene, bcfg, root, child_templates(scene.fractal), frame=frame
-        )
-        cam = binned.camera_vector(scene, bcfg, frame=frame)
-        out_k, m_k = binned.trace_pairs_fused_soa(cam, pairs, starts, lens,
-                                                  bcfg)
-        torch.cuda.synchronize()
-        out_p, m_p = binned.trace_pairs_fused_plain(cam, pairs, starts, lens,
-                                                    bcfg)
-    last = compare_rows(torch, out_k, out_p, deep=True)
-    last.update(
-        bits_equal=bits_equal(torch, out_k, out_p),
-        metrics_equal=bool(torch.equal(m_k, m_p)),
-        rows=int(out_k.shape[1]),
-        shape=dict(tiles=int(out_k.shape[0]), y_off=frame[3],
-                   pair_rows=int(pairs.shape[0]), n_pairs=int(n_pairs),
-                   max_segment=int(lens.max()), overflow=int(ovf)),
-    )
-    return last, per_band
+    return band_vs_plain(torch, scene, cfg), per_band
 
 
 def gradient_phase(torch, dev, scene, cfg, card, reset_counts, read_counts):
@@ -1923,6 +1942,273 @@ def native_phase(torch, dev, scene, cfg, card, cli_main, reset_counts,
         fail(f"the native PNG path is off: {out}")
     if rc != 0 or counts != [ANIMATE_FRAMES, 0, 0, 0]:
         fail(f"--animate with native PNGs failed: {out}")
+    return counts
+
+
+# ---- the reference's measurement programs ----------------------------
+# `python -m sphereflake_tpu_torch.bench` runs in-process at the
+# reference's settings; the `bigframe` sizes and depths are the
+# reference tool's (`tools/bigframe.py`), each climbing the capacity
+# ladder (`render.grow_capacity`) until no band overflows, at most
+# BIG_MAX_RUNGS rungs; the scaling projection runs both of the reference
+# tool's modes with its loops cut to SCALING_LOOPS (the reference's:
+# n_small 2, n_big 22 (1080p) or 4 (config5), min of 2 trials).
+BIG_LEAN_SIZE = 4096  # lean_bands vs render_gbuffer, bit for bit
+BIG_FULL_SIZE = 8192  # render_gbuffer, the full G-buffer on the card
+BIG_DEPTHS = (6, 8)  # the 16384^2 frame through lean_bands
+BIG_MAX_RUNGS = 4
+SCALING_LOOPS = dict(n_small=1, n_big=2, trials=1)
+
+
+def _captured(fn):
+    """(fn(), the lines it printed to stdout, those to stderr): the
+    programs print their results and their context; here they go into
+    the phase's JSON line."""
+    import contextlib
+    import io
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        result = fn()
+    return (result, out.getvalue().strip().splitlines(),
+            err.getvalue().strip().splitlines())
+
+
+def bench_phase(torch, dev, card, reset_counts, read_counts):
+    """`bench`: `sphereflake_tpu_torch.bench.main` at the reference's
+    settings. It must return 0 (both gates held) and end with the JSON
+    line of the reference's keys; K1 launches once a frame and once a
+    trimmed prepare, K2 once a tile step, as its loops say. Returns the
+    launches."""
+    from sphereflake_tpu_torch import bench
+
+    t_phase = time.perf_counter()
+    # Each marginal runs n_small and n_big once to warm up, then per trial.
+    per_round = bench.N_SMALL + bench.N_BIG
+    frames = 1 + per_round * (1 + bench.FRAME_TRIALS)
+    prepares = 1 + 2 * (1 + bench.REFRESH_TRIALS)
+    steps = bench.GATE_STEPS + per_round * (1 + bench.REFRESH_TRIALS)
+    expected = [frames + prepares, steps, 0, 0]
+    reset_counts()
+    rc, lines, context = _captured(lambda: bench.main([]))
+    counts = read_counts()
+    record = json.loads(lines[-1]) if rc == 0 and lines else {}
+    keys = {"metric", "value", "unit", "mode", "full_frame_rays_per_second",
+            "tiles_per_step", "sustained_trials_rays_per_second",
+            "full_frame_trials_rays_per_second", "device", "power_limit"}
+    out = dict(
+        rc=rc, keys_as_the_reference=set(record) == keys,
+        value=record.get("value"),
+        full_frame_rays_per_second=record.get("full_frame_rays_per_second"),
+        sustained_trials_rays_per_second=record.get(
+            "sustained_trials_rays_per_second"),
+        full_frame_trials_rays_per_second=record.get(
+            "full_frame_trials_rays_per_second"),
+        device=record.get("device"), power_limit=record.get("power_limit"),
+        launches=counts, expected_launches=expected, card=card,
+        seconds=time.perf_counter() - t_phase, context=context,
+    )
+    emit("bench", **out)
+    if rc != 0 or not out["keys_as_the_reference"]:
+        fail(f"the bench failed or printed another line: {out}, {lines[-1:]}")
+    if counts != expected:
+        fail(f"the bench's launches are not its loops': {out}")
+    return counts
+
+
+def bigframe_phase(torch, dev, scene, card, reset_counts, read_counts):
+    """`bigframe`: `lean_bands` equal to `render_gbuffer` bit for bit at
+    4096^2 (min_t, hit; the preview is the normal plane at every 8th
+    pixel); 8192^2 through `render_gbuffer` and 16384^2 at depths 6 and
+    8 through `lean_bands`, each climbing the capacity ladder until no
+    band overflows, then K1 against its plain version on its last band
+    (y offset 16256: bit for bit, a `kernel_vs_plain` line); K1 once a
+    band in every call. Per size the warm call (CUDA events) and the
+    peak memory. Returns the launches and the 16384^2 band checks."""
+    from sphereflake_tpu_torch import bigframe
+    from sphereflake_tpu_torch.render import grow_capacity, render_gbuffer
+
+    t_phase = time.perf_counter()
+    held_mib = torch.cuda.memory_allocated(dev) / 2**20
+    total = [0, 0, 0, 0]
+    calls = []  # (what, bands, launches) of every call
+
+    def counted(what, cfg, fn):
+        reset_counts()
+        result = fn()
+        counts = read_counts()
+        calls.append(dict(what=what, bands=bigframe.n_bands(cfg),
+                          launches=counts))
+        total[:] = [t + c for t, c in zip(total, counts)]
+        return result
+
+    def gbuffer(cfg):
+        with torch.no_grad():
+            return render_gbuffer(scene, cfg, device=dev)
+
+    def ladder(what, cfg, fn, overflow_of):
+        rungs = []
+        while True:
+            result = counted(what, cfg, lambda: fn(cfg))
+            rungs.append(dict(global_cap=cfg.global_cap,
+                              band_tile_rows=cfg.effective_band_rows,
+                              overflow=overflow_of(result)))
+            if not rungs[-1]["overflow"]:
+                return cfg, result, rungs
+            if len(rungs) == BIG_MAX_RUNGS:
+                fail(f"{what} still overflows after {rungs}")
+            cfg = grow_capacity(cfg)
+
+    def size_report(cfg, first_s, rungs, hits, fn):
+        ms = bigframe.warm_ms(
+            lambda: counted(f"warm {cfg.width} d{cfg.max_depth}", cfg, fn),
+            dev)
+        return dict(
+            size=cfg.width, depth=cfg.max_depth, bands=bigframe.n_bands(cfg),
+            rungs=rungs, first_call_seconds=first_s, warm_ms=ms,
+            rays_per_second=cfg.width * cfg.height / (ms * 1e-3),
+            hits=hits, hit_fraction=hits / (cfg.width * cfg.height),
+            peak_memory_mib=torch.cuda.max_memory_allocated(dev) / 2**20,
+        )
+
+    sizes = []
+    # 4096^2: the lean loop against the full G-buffer, bit for bit.
+    cfg = bigframe.big_config(BIG_LEAN_SIZE, DEPTH)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    lean = counted("lean 4096", cfg, lambda: bigframe.lean_bands(scene, cfg))
+    first_s = time.perf_counter() - t0
+    gb = counted("render_gbuffer 4096", cfg, lambda: gbuffer(cfg))
+    step = bigframe.DS
+    hit_s = gb.hit[::step, ::step]
+    equal = dict(
+        min_t=bool(torch.equal(lean["min_t"], gb.min_t)),
+        hit=bool(torch.equal(lean["hit"].bool(), gb.hit)),
+        preview_where_hit=bool(torch.equal(
+            lean["preview"][hit_s], gb.normal[::step, ::step][hit_s])),
+        nodes=lean["nodes"] == int(gb.metrics.nodes_visited),
+        overflow=lean["overflow"] == int(gb.metrics.overflow) == 0,
+    )
+    hits = int(gb.hit.sum(dtype=torch.int64))
+    del gb, lean
+    # One band's worth of host and device time, 8 times over.
+    lean_profile = counted("profiled lean 4096", cfg, lambda: profile_device(
+        torch, lambda: bigframe.lean_bands(scene, cfg), 1, cuda_only=True))
+    sizes.append(dict(
+        **size_report(cfg, first_s, None, hits,
+                      lambda: bigframe.lean_bands(scene, cfg)),
+        path="lean_bands", lean_equals_render_gbuffer=equal,
+        profile=lean_profile,
+    ))
+    if lean_profile:
+        sizes[-1]["idle_share"] = 1.0 - lean_profile["busy_ms"] / sizes[-1][
+            "warm_ms"]
+
+    # 8192^2: the full G-buffer through render_gbuffer.
+    cfg = bigframe.big_config(BIG_FULL_SIZE, DEPTH)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    cfg, gb, rungs = ladder("render_gbuffer 8192", cfg, gbuffer,
+                            lambda g: int(g.metrics.overflow))
+    first_s = time.perf_counter() - t0
+    hits = int(gb.hit.sum(dtype=torch.int64))
+    finite = bool(torch.isfinite(gb.position).all())
+    del gb
+    sizes.append(dict(**size_report(cfg, first_s, rungs, hits,
+                                    lambda: gbuffer(cfg)),
+                      path="render_gbuffer", position_finite=finite))
+
+    # 16384^2 at depths 6 and 8: the lean loop.
+    big_hits = {}
+    band_checks_16k = []
+    for depth in BIG_DEPTHS:
+        cfg = bigframe.big_config(bigframe.LEAN_FROM, depth)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        cfg, lean, rungs = ladder(
+            f"lean 16384 d{depth}", cfg,
+            lambda c: bigframe.lean_bands(scene, c),
+            lambda r: r["overflow"])
+        first_s = time.perf_counter() - t0
+        big_hits[depth] = int(lean["hit"].sum(dtype=torch.int64))
+        finite = bool(torch.isfinite(lean["preview"]).all())
+        del lean
+        sizes.append(dict(
+            **size_report(cfg, first_s, rungs, big_hits[depth],
+                          lambda: bigframe.lean_bands(scene, cfg)),
+            path="lean_bands", preview_finite=finite,
+        ))
+        # K1 against its plain version where the pixel offsets are
+        # largest: the last band of the frame the ladder settled on
+        # (outside every counted call).
+        check = band_vs_plain(torch, scene, cfg)
+        bands = check["shape"]["bands"]
+        emit("kernel_vs_plain", kernel="pairs_kernel",
+             variant=f"16384^2 band {bands - 1} of {bands}, depth {depth}",
+             limits=dict(agree_min=AGREE_MIN, abs_err_max=ABS_ERR_MAX),
+             **check)
+        if not check["bits_equal"] or not check["metrics_equal"]:
+            fail(f"pairs_kernel (16384^2 last band, depth {depth}) "
+                 f"disagrees with its plain version: {check}")
+        check_agreement(f"pairs_kernel (16384^2 last band, depth {depth})",
+                        check)
+        band_checks_16k.append(check)
+    out = dict(
+        sizes=sizes, hits_16384_by_depth=big_hits,
+        hits_16384_equal_across_depths=len(set(big_hits.values())) == 1,
+        calls=calls, launches=total, held_before_mib=held_mib, card=card,
+        seconds=time.perf_counter() - t_phase,
+    )
+    emit("bigframe", **out)
+    if not all(sizes[0]["lean_equals_render_gbuffer"].values()):
+        fail(f"lean_bands differs from render_gbuffer at 4096^2: {out}")
+    bad = [c for c in calls if c["launches"] != [c["bands"], 0, 0, 0]]
+    if bad:
+        fail(f"a big frame did not launch K1 once a band: {bad}")
+    if not all(s.get("position_finite", True) and s.get("preview_finite", True)
+               and 0.0 < s["hit_fraction"] < 1.0 for s in sizes):
+        fail(f"a big frame is not finite or has no hits: {out}")
+    return total, band_checks_16k
+
+
+def scaling_phase(torch, dev, card, reset_counts, read_counts):
+    """`scaling_project`: both modes of the reference's projection through
+    the bench's moving-camera marginal, with the loops cut to
+    SCALING_LOOPS; every projected efficiency, each measurement's peak
+    memory (the whole 16384^2 `render_gbuffer` holds every band's rows
+    until one cat) and K1 once a band of every frame. Returns the
+    launches."""
+    from sphereflake_tpu_torch import bigframe
+    from sphereflake_tpu_torch import scaling_project as sp
+
+    t_phase = time.perf_counter()
+    frames = (SCALING_LOOPS["n_small"] + SCALING_LOOPS["n_big"]) * (
+        1 + SCALING_LOOPS["trials"])  # warm-up and trials
+    expected = 0
+    for mode in sp.MODES:
+        whole, blocks = sp.configs(mode, DEPTH)
+        expected += frames * sum(bigframe.n_bands(c)
+                                 for c in (whole, *blocks.values()))
+    held_mib = torch.cuda.memory_allocated(dev) / 2**20
+    reset_counts()
+    results, lines, context = _captured(lambda: [
+        sp.project(DEPTH, mode, dev, **SCALING_LOOPS) for mode in sp.MODES
+    ])
+    counts = read_counts()
+    out = dict(
+        reduction=dict(**SCALING_LOOPS, reference=dict(
+            n_small=2, n_big=sp.N_BIG, trials=sp.TRIALS, pick="min")),
+        projections=results, lines=lines, context=context, launches=counts,
+        expected_launches=[expected, 0, 0, 0], held_before_mib=held_mib,
+        card=card,
+        seconds=time.perf_counter() - t_phase,
+    )
+    emit("scaling_project", **out)
+    if counts != [expected, 0, 0, 0]:
+        fail(f"the projection's launches are not its frames' bands: {out}")
+    if not all(0.0 < b["efficiency"] and b["ms"] > 0.0
+               for r in results for b in r["blocks"]):
+        fail(f"a projection time is not positive: {out}")
     return counts
 
 
@@ -3222,6 +3508,15 @@ def main(argv) -> int:
                      read_counts, size_args),
     ):
         multi = [m + c for m, c in zip(multi, counts)]
+
+    # ---- phase 4f: the reference's measurement programs
+    bench_counts = bench_phase(torch, dev, card, reset_counts, read_counts)
+    big_counts, big_checks = bigframe_phase(torch, dev, scene, card,
+                                            reset_counts, read_counts)
+    scaling_counts = scaling_phase(torch, dev, card, reset_counts,
+                                   read_counts)
+    for counts in (bench_counts, big_counts, scaling_counts):
+        multi = [m + c for m, c in zip(multi, counts)]
     path_launches = [p + m for p, m in zip(path_launches, multi)]
     k4_path_launches += multi[3]
 
@@ -3241,7 +3536,8 @@ def main(argv) -> int:
             "name": "pairs_kernel", "route": "cuda", "source": source,
             "replaces": "sphereflake_tpu/ops/binned.py:1064",
             "launches": path_launches[0],
-            "max_abs_err": max(shallow["max_abs_err"], deep["max_abs_err"]),
+            "max_abs_err": max(r["max_abs_err"] for r in (
+                shallow, deep, *big_checks)),
             "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None,
         },

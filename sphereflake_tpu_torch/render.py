@@ -129,26 +129,51 @@ def grow_capacity(cfg: RenderConfig) -> RenderConfig:
     return dataclasses.replace(cfg, band_tile_rows=new_rows)
 
 
+def band_layout(cfg: RenderConfig, frame):
+    """(band config, y offsets) of cfg's full tile grid at `frame` =
+    (frame_w, frame_h, x_off, y_off).
+
+    cfg may describe one block of a larger frame. When
+    `cfg.effective_band_rows` is set (explicitly, or automatically for
+    tile counts that would blow the pair budget), the grid renders in
+    horizontal bands: each band is a further y-offset block of the same
+    frame. Otherwise the one band is the whole grid, with cfg itself."""
+    y0 = frame[3]
+    band_rows = cfg.effective_band_rows
+    if band_rows is None:
+        return cfg, [y0]
+    band_px = band_rows * cfg.tile_h
+    bcfg = dataclasses.replace(
+        cfg, height=band_px, band_tile_rows=None, width=cfg.padded_width
+    )
+    return bcfg, [y0 + float(b * band_px)
+                  for b in range(cfg.tiles_y // band_rows)]
+
+
+def binned_bands(scene: SceneParams, cfg: RenderConfig, frame, primal=None):
+    """The bands of `band_layout(cfg, frame)`, one after the other:
+    yields (band config, y offset, the outputs of
+    `ops.binned.binned_gbuffer`) for each. `primal` replaces the block's
+    forward (`ops.binned._gbuffer_primal`). The caller decides what of a
+    band outlives the next one."""
+    from sphereflake_tpu_torch.ops.binned import _gbuffer_primal, binned_gbuffer
+
+    fw, fh, x0, _y0 = frame
+    bcfg, offsets = band_layout(cfg, frame)
+    for y_off in offsets:
+        yield bcfg, y_off, binned_gbuffer(
+            bcfg, fw, fh, scene, (x0, y_off), primal=primal or _gbuffer_primal
+        )
+
+
 def _binned_rows(scene: SceneParams, cfg: RenderConfig, frame, primal=None):
     """Shaded kernel rows [T, 7, 8, 128] (min_t, pos3, nrm3) for cfg's
-    full tile grid, plus (depth_reached, nodes_visited, overflow).
-
-    `frame` = (frame_w, frame_h, x_off, y_off): cfg may describe one
-    block of a larger frame. When `cfg.effective_band_rows` is set
-    (explicitly, or automatically for tile counts that would blow the
-    pair budget), the grid renders in horizontal bands, one after the
-    other: each band is a further y-offset block of the same frame.
-    `primal` replaces the block's forward (`ops.binned.binned_gbuffer`)."""
-    from sphereflake_tpu_torch.ops.binned import _gbuffer_primal, binned_gbuffer
+    full tile grid, plus (depth_reached, nodes_visited, overflow): the
+    bands of `binned_bands`, concatenated."""
     from sphereflake_tpu_torch.ops.pallas_traversal import depth_reached_soa
 
-    fw, fh, x0, y0 = frame
-
-    def one(c, y_off):
-        (min_t, px, py, pz, nx, ny, nz, _hitf, lo, hi, m, povf) = (
-            binned_gbuffer(c, fw, fh, scene, (x0, y_off),
-                           primal=primal or _gbuffer_primal)
-        )
+    def one(c, outs):
+        (min_t, px, py, pz, nx, ny, nz, _hitf, lo, hi, m, povf) = outs
         Tb = c.tiles_y * c.tiles_x
         rows = torch.movedim(
             torch.stack([min_t, px, py, pz, nx, ny, nz], dim=0)
@@ -162,17 +187,11 @@ def _binned_rows(scene: SceneParams, cfg: RenderConfig, frame, primal=None):
             m[..., 1].sum(dtype=torch.int32) + povf,
         )
 
-    band_rows = cfg.effective_band_rows
-    if band_rows is None:
-        rows, depth_r, nodes_n, ovf = one(cfg, y0)
+    bands = [one(c, outs)
+             for c, _y, outs in binned_bands(scene, cfg, frame, primal)]
+    if cfg.effective_band_rows is None:
+        rows, depth_r, nodes_n, ovf = bands[0]
         return rows, (depth_r, nodes_n, ovf)
-
-    band_px = band_rows * cfg.tile_h
-    n_bands = cfg.tiles_y // band_rows
-    bcfg = dataclasses.replace(
-        cfg, height=band_px, band_tile_rows=None, width=cfg.padded_width
-    )
-    bands = [one(bcfg, y0 + float(b * band_px)) for b in range(n_bands)]
     rows_b, depth_b, nodes_b, ovf_b = zip(*bands)
     return (
         torch.cat(rows_b),
