@@ -1,0 +1,14 @@
+"""Per-layer metric `device_idle.fit` (fraction): one less the device's busy time (the union of its operations)
+over the host-clock length of the profiled whole fit steps.
+
+Reads the traced run's context (see `run.py`); returns None where it
+finds nothing to read."""
+
+KIND = "fit"
+
+
+def read(ctx):
+    prof = ctx["profile"]
+    if ctx["kind"] != KIND or prof is None:
+        return None
+    return 1.0 - prof["busy_s"] / prof["window_s"]

@@ -1,0 +1,14 @@
+"""Per-layer metric `launches.refresh` (launches/step): device operations in the profile per step; a count that
+repeats exactly whatever the host's pace.
+
+Reads the traced run's context (see `run.py`); returns None where it
+finds nothing to read."""
+
+KIND = "refresh"
+
+
+def read(ctx):
+    prof = ctx["profile"]
+    if ctx["kind"] != KIND or prof is None:
+        return None
+    return prof["ops"] / prof["units"]
