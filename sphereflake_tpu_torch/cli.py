@@ -5,7 +5,8 @@ depth/LOD knobs):
 
 - one full frame (or `--frames N` timed frames) to a PNG, optionally
   the G-buffer to an NPZ; `--profile DIR` writes a `torch.profiler`
-  trace of the timed frames (a Chrome trace, `DIR/trace.json`);
+  trace of the timed frames (a Chrome trace, `DIR/trace.json`) and, in
+  every mode, the run's stage spans (`DIR/spans.json`, see `spans.py`);
 - `--progressive STEPS`: frameless Sobol accumulation with a static
   camera, by whole tiles (`--progressive-unit tile`, the default;
   binned only) or by single pixels (`sample`);
@@ -48,7 +49,9 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import json
 import os
+import statistics
 import sys
 import time
 
@@ -136,7 +139,11 @@ def build_parser() -> argparse.ArgumentParser:
                    "semantics) for the strict/loose traversal")
     p.add_argument("--profile", type=str, default=None, metavar="DIR",
                    help="write a torch.profiler trace of the timed frames "
-                   "(DIR/trace.json, Chrome trace format)")
+                   "(DIR/trace.json, Chrome trace format) and, in every "
+                   "mode, the run's stage spans (DIR/spans.json, every "
+                   "unit's record: frames, tile steps, fit calls; each "
+                   "span's median ms a unit is printed); "
+                   "SPHEREFLAKE_TORCH_SPANS=0 turns the spans off")
     # camera-path animation (the C++ app's navigation, main.cpp:206-257)
     p.add_argument("--animate", type=int, default=0, metavar="FRAMES",
                    help="render a camera-path frame sequence")
@@ -651,11 +658,39 @@ def _run_progressive(args, scene, cfg, device, sync, mesh) -> int:
     return 0
 
 
+def _write_spans(path: str) -> None:
+    """Every unit record of the process's stage spans to `path` (JSON),
+    and each span's median milliseconds a unit and each counter's total
+    to stdout."""
+    from sphereflake_tpu_torch import spans
+
+    recs = {name: list(spans.records(name)) for name in spans.units()}
+    with open(path, "w") as f:
+        json.dump(recs, f)
+    print(f"wrote stage spans {path}")
+    for name, rs in recs.items():
+        print(f"spans: {len(rs)} {name} units, median "
+              f"{statistics.median(r['ns'] for r in rs) * 1e-6:.3f} ms")
+        for s in sorted({s for r in rs for s in r["spans"]}):
+            print(f"spans:   {s} {spans.median_ms(name, s):.3f} ms a {name}")
+        for c in sorted({c for r in rs for c in r["counts"]}):
+            print(f"spans:   {c} {sum(r['counts'].get(c, 0) for r in rs)} "
+                  f"over the {len(rs)} {name} units")
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    rc = _main(args)
+    if args.profile:
+        os.makedirs(args.profile, exist_ok=True)
+        _write_spans(os.path.join(args.profile, "spans.json"))
+    return rc
 
+
+def _main(args) -> int:
     import torch
 
+    from sphereflake_tpu_torch import spans
     from sphereflake_tpu_torch.config import (
         CameraParams,
         FractalParams,
@@ -805,7 +840,8 @@ def main(argv=None) -> int:
     with profile_ctx as prof:
         t0 = time.perf_counter()
         for i in range(args.frames):
-            image, gb = one_frame(1 + i)
+            with spans.unit("frame"):
+                image, gb = one_frame(1 + i)
         sync()
         dt_total = time.perf_counter() - t0
     if args.profile:

@@ -27,6 +27,7 @@ from typing import Callable
 
 import torch
 
+from sphereflake_tpu_torch import spans
 from sphereflake_tpu_torch.config import (
     RenderConfig,
     SceneParams,
@@ -64,8 +65,10 @@ def _value_and_grad(loss_fn, scene: SceneParams):
     does not reach gets a zero gradient (never None)."""
     leaves = [leaf.detach().requires_grad_(True) for leaf in scene.leaves()]
     with torch.enable_grad():
-        loss = loss_fn(SceneParams.from_leaves(leaves))
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        with spans.span("fit.forward"):
+            loss = loss_fn(SceneParams.from_leaves(leaves))
+        with spans.span("fit.backward"):
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [
         torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)
     ]
@@ -200,7 +203,33 @@ class FitResult:
     losses: list
 
 
-def fit(
+def fit(scene: SceneParams, target_pos, target_nrm, cfg: RenderConfig,
+        steps: int = 100, **kw) -> FitResult:
+    """Run a fitting loop; returns the fitted scene + loss history.
+
+    `optimizer` builds `(torch.optim.Adam, scheduler or None)` over a
+    list of leaf tensors, resuming from an `AdamState` or None
+    (`adam(...)`; default `adam(learning_rate)`).
+    `mesh` switches to the sharded step (the leaves then live on the
+    mesh's home device, not `device`).
+    `param_filter` masks the gradient tree (e.g. fit only the camera); a
+    masked leaf gets a zero gradient, so every leaf's Adam step count
+    stays optax's one `count`. Passing `opt_state` (an `AdamState`)
+    resumes a checkpointed run. With `keep_best` (default) the returned
+    scene is the best-loss iterate — the iterate *before* the update of
+    the step that scored it (the G-buffer loss is only piecewise smooth,
+    so the last Adam iterate can sit above the best one). `loss="image"`
+    fits against `target_image` through the full post chain
+    (`image_loss`), which SSAO-parameter fitting needs.
+
+    The keywords are `_fit`'s. A call is one `fit` unit of the stage
+    spans (`spans.py`), its `steps` the unit's counter `fit.steps`."""
+    with spans.unit("fit"):
+        spans.count("fit.steps", steps)
+        return _fit(scene, target_pos, target_nrm, cfg, steps, **kw)
+
+
+def _fit(
     scene: SceneParams,
     target_pos,
     target_nrm,
@@ -217,22 +246,7 @@ def fit(
     target_image=None,
     device="cuda",
 ) -> FitResult:
-    """Run a fitting loop; returns the fitted scene + loss history.
-
-    `optimizer` builds `(torch.optim.Adam, scheduler or None)` over a
-    list of leaf tensors, resuming from an `AdamState` or None
-    (`adam(...)`; default `adam(learning_rate)`).
-    `mesh` switches to the sharded step (the leaves then live on the
-    mesh's home device, not `device`).
-    `param_filter` masks the gradient tree (e.g. fit only the camera); a
-    masked leaf gets a zero gradient, so every leaf's Adam step count
-    stays optax's one `count`. Passing `opt_state` (an `AdamState`)
-    resumes a checkpointed run. With `keep_best` (default) the returned
-    scene is the best-loss iterate — the iterate *before* the update of
-    the step that scored it (the G-buffer loss is only piecewise smooth,
-    so the last Adam iterate can sit above the best one). `loss="image"`
-    fits against `target_image` through the full post chain
-    (`image_loss`), which SSAO-parameter fitting needs."""
+    """`fit`'s body."""
     dev = mesh.home if mesh is not None else resolve_device(device)
     if loss == "image":
         assert target_image is not None, "loss='image' needs target_image"

@@ -37,7 +37,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from sphereflake_tpu_torch import kernels
+from sphereflake_tpu_torch import kernels, spans
 from sphereflake_tpu_torch.config import FractalParams, RenderConfig
 
 _BIG = 3.0e38  # rounds to np.float32(3.0e38) in every f32 tensor op
@@ -1033,12 +1033,14 @@ def binned_pairs(scene, cfg: RenderConfig, root, templates, frame=None):
 
     `frame` = (frame_w, frame_h, x_off, y_off) when cfg describes one
     block (band) of a larger frame (see `bin_nodes`)."""
-    nodes, exp_overflow, minv, corners = frame_nodes(
-        scene, cfg, root, templates, frame
-    )
-    pairs, starts, lens, (n_pairs, pair_ovf) = bin_nodes(
-        nodes, minv, cfg, frame=frame, corners=corners
-    )
+    with spans.span("gbuffer.expand"):
+        nodes, exp_overflow, minv, corners = frame_nodes(
+            scene, cfg, root, templates, frame
+        )
+    with spans.span("gbuffer.bin"):
+        pairs, starts, lens, (n_pairs, pair_ovf) = bin_nodes(
+            nodes, minv, cfg, frame=frame, corners=corners
+        )
     return pairs, starts, lens, (n_pairs, pair_ovf + exp_overflow)
 
 
@@ -1073,8 +1075,9 @@ def _gbuffer_primal(cfg: RenderConfig, frame_w, frame_h, scene, offs):
     pairs, starts, lens, (_n, povf) = binned_pairs(
         scene, cfg, root, templates, frame=frame
     )
-    cam = camera_vector(scene, cfg, frame=frame)
-    out, m = trace_pairs_fused_soa(cam, pairs, starts, lens, cfg)
+    with spans.span("gbuffer.k1"):
+        cam = camera_vector(scene, cfg, frame=frame)
+        out, m = trace_pairs_fused_soa(cam, pairs, starts, lens, cfg)
     deep = cfg.max_depth >= 7
     flat = lambda r: out[:, r].reshape(-1)
     min_t = flat(0)
@@ -1173,10 +1176,11 @@ class BinnedGBuffer(torch.autograd.Function):
 
         cfg, frame_w, frame_h, _primal = ctx.statics
         lo, hi = ctx.saved_tensors[:2]
-        return _gbuffer_recompute(
-            cfg, frame_w, frame_h, SceneParams.from_leaves(leaves),
-            ctx.offs, lo, hi,
-        )
+        with spans.span("gbuffer.recompute"):
+            return _gbuffer_recompute(
+                cfg, frame_w, frame_h, SceneParams.from_leaves(leaves),
+                ctx.offs, lo, hi,
+            )
 
     @staticmethod
     def backward(ctx, *grads):

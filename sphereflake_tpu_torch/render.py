@@ -34,6 +34,7 @@ import dataclasses
 
 import torch
 
+from sphereflake_tpu_torch import spans
 from sphereflake_tpu_torch.camera import (
     corner_rays,
     pixel_grid,
@@ -175,17 +176,18 @@ def _binned_rows(scene: SceneParams, cfg: RenderConfig, frame, primal=None):
     def one(c, outs):
         (min_t, px, py, pz, nx, ny, nz, _hitf, lo, hi, m, povf) = outs
         Tb = c.tiles_y * c.tiles_x
-        rows = torch.movedim(
-            torch.stack([min_t, px, py, pz, nx, ny, nz], dim=0)
-            .reshape(7, Tb, 8, 128),
-            0, 1,
-        )
-        return (
-            rows,
-            depth_reached_soa(lo, c, hi),
-            m[..., 0].sum(dtype=torch.int32),
-            m[..., 1].sum(dtype=torch.int32) + povf,
-        )
+        with spans.span("gbuffer.untile"):
+            rows = torch.movedim(
+                torch.stack([min_t, px, py, pz, nx, ny, nz], dim=0)
+                .reshape(7, Tb, 8, 128),
+                0, 1,
+            )
+            return (
+                rows,
+                depth_reached_soa(lo, c, hi),
+                m[..., 0].sum(dtype=torch.int32),
+                m[..., 1].sum(dtype=torch.int32) + povf,
+            )
 
     bands = [one(c, outs)
              for c, _y, outs in binned_bands(scene, cfg, frame, primal)]
@@ -193,14 +195,15 @@ def _binned_rows(scene: SceneParams, cfg: RenderConfig, frame, primal=None):
         rows, depth_r, nodes_n, ovf = bands[0]
         return rows, (depth_r, nodes_n, ovf)
     rows_b, depth_b, nodes_b, ovf_b = zip(*bands)
-    return (
-        torch.cat(rows_b),
-        (
-            torch.stack(depth_b).max(),
-            torch.stack(nodes_b).sum(dtype=torch.int32),
-            torch.stack(ovf_b).sum(dtype=torch.int32),
-        ),
-    )
+    with spans.span("gbuffer.untile"):
+        return (
+            torch.cat(rows_b),
+            (
+                torch.stack(depth_b).max(),
+                torch.stack(nodes_b).sum(dtype=torch.int32),
+                torch.stack(ovf_b).sum(dtype=torch.int32),
+            ),
+        )
 
 
 def _render_gbuffer_binned(scene: SceneParams, cfg: RenderConfig,
@@ -212,7 +215,10 @@ def _render_gbuffer_binned(scene: SceneParams, cfg: RenderConfig,
     rows, (depth_r, nodes_n, overflow) = _binned_rows(
         scene, cfg, (cfg.width, cfg.height, 0.0, 0.0), primal
     )
-    imgs = _untile_rows(rows, cfg)
+    with spans.span("gbuffer.untile"):
+        imgs = _untile_rows(rows, cfg)
+        position = torch.stack(imgs[1:4], dim=-1)
+        normal = torch.stack(imgs[4:7], dim=-1)
     min_t_img = imgs[0]
     metrics = RenderMetrics(
         max_depth_reached=depth_r,
@@ -224,8 +230,8 @@ def _render_gbuffer_binned(scene: SceneParams, cfg: RenderConfig,
         ),
     )
     return GBuffer(
-        position=torch.stack(imgs[1:4], dim=-1),
-        normal=torch.stack(imgs[4:7], dim=-1),
+        position=position,
+        normal=normal,
         min_t=min_t_img,
         hit=min_t_img < _BIG,
         metrics=metrics,
@@ -440,13 +446,14 @@ def render_gbuffer(
     scene's leaves are moved there; asking for "cuda" without one
     raises). Position, normal and min_t are differentiable in the
     scene's leaves."""
-    scene = scene.to(resolve_device(device))
-    with _grad_mode(scene):
-        if cfg.algorithm == "binned":
-            return _render_gbuffer_binned(scene, cfg)
-        if cfg.algorithm == "pallas":
-            return _render_gbuffer_soa(scene, cfg)
-        return _render_gbuffer_tiles(scene, cfg)
+    with spans.span("gbuffer"):
+        scene = scene.to(resolve_device(device))
+        with _grad_mode(scene):
+            if cfg.algorithm == "binned":
+                return _render_gbuffer_binned(scene, cfg)
+            if cfg.algorithm == "pallas":
+                return _render_gbuffer_soa(scene, cfg)
+            return _render_gbuffer_tiles(scene, cfg)
 
 
 def render_frame(scene: SceneParams, cfg: RenderConfig, device="cuda"):

@@ -31,6 +31,7 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from sphereflake_tpu_torch import spans
 from sphereflake_tpu_torch.config import (
     RenderConfig,
     SceneParams,
@@ -276,24 +277,31 @@ def animate(
     cam0 = scene.camera
     radius = float(torch.linalg.vector_norm(cam0.position))
     for i in range(n_frames):
-        if mode == "orbit":
-            # Rotate the start position about the world Y axis.
-            scene = _orbit_scene(scene, cam0, radius, i, n_frames)
-        elif mode != "approach":
-            raise ValueError(f"unknown animation mode {mode!r}")
+        # The unit ends before the yield: the caller's time with the
+        # frame is not the frame's.
+        with spans.unit("frame"):
+            if mode == "orbit":
+                # Rotate the start position about the world Y axis.
+                scene = _orbit_scene(scene, cam0, radius, i, n_frames)
+            elif mode != "approach":
+                raise ValueError(f"unknown animation mode {mode!r}")
 
-        while True:
-            if composite:
-                image, gb = render_frame(scene, cfg)
-                image = image.cpu().numpy()
-            else:
-                gb = render_gbuffer(scene, cfg)
-                image = shade_normals(gb.normal, gb.hit)
-            if not int(gb.metrics.overflow):
-                break
-            # Deep poses outgrow the capacity defaults (the C++ app's
-            # recursion has no caps).
-            cfg = render.grow_capacity(cfg)
+            while True:
+                spans.count("frame.renders")
+                if composite:
+                    image, gb = render_frame(scene, cfg)
+                    with spans.span("animate.to_host"):
+                        image = image.cpu().numpy()
+                else:
+                    gb = render_gbuffer(scene, cfg)
+                    image = shade_normals(gb.normal, gb.hit)
+                with spans.span("animate.overflow_read"):
+                    overflow = int(gb.metrics.overflow)
+                if not overflow:
+                    break
+                # Deep poses outgrow the capacity defaults (the C++ app's
+                # recursion has no caps).
+                cfg = render.grow_capacity(cfg)
         yield image, scene
 
         if mode == "approach":

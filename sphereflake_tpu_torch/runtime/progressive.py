@@ -48,6 +48,7 @@ import dataclasses
 
 import torch
 
+from sphereflake_tpu_torch import spans
 from sphereflake_tpu_torch.camera import ray_directions
 from sphereflake_tpu_torch.config import (
     RenderConfig,
@@ -554,12 +555,13 @@ def progressive_tiles_step(
         trace_pairs_fused_subset,
     )
 
-    dev = state.rows.device
-    scene = scene.to(dev)
-    with torch.no_grad():
-        ids, next_lo, next_hi = progressive_tile_ids(
-            state, cfg, tiles_per_step
-        )
+    with spans.unit("tiles_step"), torch.no_grad():
+        dev = state.rows.device
+        scene = scene.to(dev)
+        with spans.span("tiles_step.ids"):
+            ids, next_lo, next_hi = progressive_tile_ids(
+                state, cfg, tiles_per_step
+            )
         if prepared is not None:
             pairs, starts, lens, pair_ovf = prepared
         else:
@@ -568,42 +570,45 @@ def progressive_tiles_step(
             pairs, starts, lens, (_n, pair_ovf) = binned_pairs(
                 scene, cfg, root, templates
             )
-        cam = camera_vector(scene, cfg)
+        with spans.span("tiles_step.pack"):
+            cam = camera_vector(scene, cfg)
         # shade_only: the state never stores path codes, so the code
         # accumulators leave the kernel's loop and the output rows ARE
         # the state layout (min_t, pos3, nrm3) — no re-pack copy.
-        out, m = trace_pairs_fused_subset(
-            cam, pairs, starts, lens, ids, cfg, shade_only=True
-        )
-        # Duplicate tile ids within a batch write IDENTICAL rows (same
-        # camera), so the unordered scatter is deterministic by value.
-        ids_l = ids.long()
-        rows = state.rows.clone()
-        rows[ids_l] = out
-        covered = state.covered.clone()
-        covered[ids_l] = True
-        # Includes the padded extrapolation columns of edge tiles;
-        # `tile_progressive_composite` recomputes it from the cropped
-        # plane.
-        batch_closest = torch.min(out[:, 0])
-        return TileProgressiveState(
-            rows=rows,
-            covered=covered,
-            # hi-word carry at the 2^32 lo wrap (`_cursor_indices`).
-            sample_lo=next_lo,
-            sample_hi=next_hi,
-            seed=state.seed,
-            closest_distance=torch.minimum(
-                state.closest_distance, batch_closest
-            ),
-            samples_traced=(
-                state.samples_traced + tiles_per_step * 1024
-            ) & _M32,
-            overflow=(
-                state.overflow + pair_ovf
-                + m[..., 1].sum(dtype=torch.int32)
-            ),
-        )
+        with spans.span("tiles_step.k2"):
+            out, m = trace_pairs_fused_subset(
+                cam, pairs, starts, lens, ids, cfg, shade_only=True
+            )
+        with spans.span("tiles_step.scatter"):
+            # Duplicate tile ids within a batch write IDENTICAL rows (same
+            # camera), so the unordered scatter is deterministic by value.
+            ids_l = ids.long()
+            rows = state.rows.clone()
+            rows[ids_l] = out
+            covered = state.covered.clone()
+            covered[ids_l] = True
+            # Includes the padded extrapolation columns of edge tiles;
+            # `tile_progressive_composite` recomputes it from the cropped
+            # plane.
+            batch_closest = torch.min(out[:, 0])
+            return TileProgressiveState(
+                rows=rows,
+                covered=covered,
+                # hi-word carry at the 2^32 lo wrap (`_cursor_indices`).
+                sample_lo=next_lo,
+                sample_hi=next_hi,
+                seed=state.seed,
+                closest_distance=torch.minimum(
+                    state.closest_distance, batch_closest
+                ),
+                samples_traced=(
+                    state.samples_traced + tiles_per_step * 1024
+                ) & _M32,
+                overflow=(
+                    state.overflow + pair_ovf
+                    + m[..., 1].sum(dtype=torch.int32)
+                ),
+            )
 
 
 def tile_progressive_gbuffer(state: TileProgressiveState, cfg: RenderConfig):
