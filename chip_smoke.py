@@ -114,6 +114,18 @@ FIT_WIDTH, FIT_HEIGHT, FIT_DEPTH, FIT_STEPS = 3840, 2160, 8, 4
 # relative t error is a good part of r (r = 3^-5), so it differs by up
 # to ~0.2 where min_t agrees.
 RECOMPUTE_RTOL, RECOMPUTE_ATOL, RECOMPUTE_CLOSE_MIN = 1e-4, 1e-5, 0.995
+# The backward's kernel (`csrc/recompute_vjp.cu`) against its plain version
+# on each band of the 4K fit: every gradient bit for bit (the plain version
+# keeps the kernel's reduction order), within VJP_RTOL of the plain
+# version's elementwise plus VJP_ATOL of its largest magnitude (the CPU
+# test's bar against autograd, tests/test_torch_recompute_vjp.py), and every
+# leaf gradient's sign equal where it is above that floor.
+VJP_RTOL, VJP_ATOL = 1e-4, 1e-4
+# Its f32 operations: per hit ray outside the levels (distance, shading and
+# their backward, the root terms) and per level a ray takes (the frame step,
+# u's and w's steps, the 13 terms added).
+OPS_PER_VJP_RAY, OPS_PER_VJP_LEVEL = 150, 137
+VJP_TIMED_REPS = 20
 FRAMES = 3  # render_frame calls whose result is checked
 CLI_FRAMES = 2  # timed frames of the CLI run (plus its warm-up frame)
 # Kernel vs plain, on identical inputs, both without FMA contraction:
@@ -789,6 +801,115 @@ def band_checks(torch, scene, cfg):
     return band_vs_plain(torch, scene, cfg), per_band
 
 
+def vjp_band_checks(torch, scene, cfg):
+    """The backward's kernel (`ops/recompute_vjp.py`) on every band of
+    cfg's banded frame, at K1's codes: its forward mode against the plain
+    chain (`_shade_codes`) bit for bit, its gradients under seeded
+    upstream gradients against the plain version bit for bit (and within
+    VJP_RTOL, VJP_ATOL), every leaf gradient's sign, two calls bit for
+    bit, its time queued behind the spin kernel, its bound and its
+    launches. Emits one `kernel_vs_plain` line a band; returns the last
+    band's numbers for the `kernels` line."""
+    from sphereflake_tpu_torch.config import SceneParams
+    from sphereflake_tpu_torch.models.sphereflake import (
+        child_templates,
+        root_frame,
+    )
+    from sphereflake_tpu_torch.ops import binned
+    from sphereflake_tpu_torch.ops import recompute_vjp as rv
+    from sphereflake_tpu_torch.render import band_layout
+
+    bcfg, offsets = band_layout(cfg, (cfg.width, cfg.height, 0.0, 0.0))
+    depth = bcfg.max_depth
+    names = ("dx", "dy", "dz", "root", "templates", "ratio", "radius0",
+             "rhit")
+    last = None
+    for b, y_off in enumerate(offsets):
+        offs = (0.0, y_off)
+        leaves = [x.detach().clone().requires_grad_(True)
+                  for x in scene.leaves()]
+        s = SceneParams.from_leaves(leaves)
+        with torch.no_grad():
+            outs = binned._gbuffer_primal(bcfg, cfg.width, cfg.height, s,
+                                          offs)
+        lo, hi = outs[8], outs[9]
+        front = (*binned._band_rays(bcfg, cfg.width, cfg.height, s, offs),
+                 root_frame(s.camera.position), child_templates(s.fractal),
+                 s.fractal.radius_ratio, s.fractal.root_radius,
+                 rv.level_radii(s.fractal, depth))
+        x = [f.detach() for f in front]
+        n = lo.shape[0]
+        gen = torch.Generator(device=lo.device).manual_seed(17 + b)
+        grads = [torch.rand(n, generator=gen, device=lo.device) - 0.5
+                 for _ in range(7)]
+        with torch.no_grad():
+            fk = rv.recompute_forward(*x[:3], lo, hi, x[3], x[4], s.fractal,
+                                      bcfg)
+            fp = torch.stack(binned._shade_codes(*x[:3], lo, hi, x[3], x[4],
+                                                 s.fractal, bcfg))
+        args = (*x[:3], lo, hi, grads, *x[3:])
+        before = rv.recompute_vjp.launches
+        gk = rv.recompute_vjp(*args, depth=depth)
+        gk2 = rv.recompute_vjp(*args, depth=depth)
+        launches = rv.recompute_vjp.launches - before
+        torch.cuda.synchronize()
+        gp = rv.recompute_vjp_plain(*args, depth=depth)
+        close = {
+            name: bool(torch.allclose(a, p, rtol=VJP_RTOL,
+                                      atol=VJP_ATOL * float(p.abs().max())))
+            for name, a, p in zip(names, gk, gp)
+        }
+        rel_err = {
+            name: float((a - p).abs().max()) / max(float(p.abs().max()),
+                                                   1e-30)
+            for name, a, p in zip(names, gk, gp)
+        }
+        leaf_k = torch.autograd.grad(front, leaves, gk, retain_graph=True,
+                                     allow_unused=True)
+        leaf_p = torch.autograd.grad(front, leaves, gp, allow_unused=True)
+        signs = []
+        for a, p in zip(leaf_k, leaf_p):
+            if p is None:
+                signs.append(a is None)
+                continue
+            floor = VJP_ATOL * float(p.abs().max())
+            signs.append(bool(((torch.sign(a) == torch.sign(p))
+                               | (p.abs() <= floor)).all()))
+        level, _digits = rv._decode(lo, hi, depth)
+        hit = outs[7] > 0.0
+        hits, taken = int(hit.sum()), int(level[hit].sum())
+        bytes_moved = n * (5 + 3) * 4 + hits * 7 * 4
+        ops = hits * OPS_PER_VJP_RAY + taken * OPS_PER_VJP_LEVEL
+        bound_ms, bound_by, bytes_ms, ops_ms = bound(bytes_moved, ops)
+        ms = event_ms(torch, lambda: rv.recompute_vjp(*args, depth=depth),
+                      VJP_TIMED_REPS, queued=True)
+        result = dict(
+            rays=n, hits=hits, levels_taken=taken, depth=depth,
+            forward_bits_equal=bool(torch.equal(fk, fp)),
+            forward_mismatches=int((fk != fp).sum()),
+            bits_equal=all(bits_equal(torch, a, p) for a, p in zip(gk, gp)),
+            repeat_bits_equal=all(bits_equal(torch, a, c)
+                                  for a, c in zip(gk, gk2)),
+            close=close, max_rel_err=rel_err, leaf_signs_equal=signs,
+            max_abs_err=max(float((a - p).abs().max()) for a, p in zip(gk, gp)),
+            ms=ms, bound_ms=bound_ms, bound_by=bound_by, bytes_ms=bytes_ms,
+            ops_ms=ops_ms, share_of_bound=bound_ms / ms, launches=launches,
+        )
+        if b == len(offsets) - 1:
+            result["plain_ms"] = event_ms(
+                torch, lambda: rv.recompute_vjp_plain(*args, depth=depth), 1)
+        emit("kernel_vs_plain", kernel="recompute_vjp",
+             variant=f"4K band {b} of {len(offsets)}",
+             limits=dict(rtol=VJP_RTOL, atol=VJP_ATOL), **result)
+        if not (result["forward_bits_equal"] and result["bits_equal"]
+                and all(close.values()) and all(signs)
+                and result["repeat_bits_equal"] and launches == 2):
+            fail(f"recompute_vjp (4K band {b}) disagrees with its plain "
+                 f"version: {result}")
+        last = result
+    return last
+
+
 def gradient_phase(torch, dev, scene, cfg, card, reset_counts, read_counts):
     """The trainer side: the 4K depth-8 fit (`fit_path`), the leaf
     gradients with each kernel and with its plain version (bit for bit,
@@ -798,6 +919,7 @@ def gradient_phase(torch, dev, scene, cfg, card, reset_counts, read_counts):
     from sphereflake_tpu_torch.fit import fit, gbuffer_loss
     from sphereflake_tpu_torch.ops import binned
     from sphereflake_tpu_torch.ops import pallas_traversal as ptrav
+    from sphereflake_tpu_torch.ops.recompute_vjp import recompute_vjp
     from sphereflake_tpu_torch.render import render_gbuffer
 
     # -- fit_path: config 4 at full width (tools/fit4k_probe.py:37-64) --
@@ -822,6 +944,7 @@ def gradient_phase(torch, dev, scene, cfg, card, reset_counts, read_counts):
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     fit_counts = read_counts()
+    fit_vjp = recompute_vjp.launches
     # One more step from the same start, timed apart (CUDA events): its
     # gradients are the fit's step-0 gradients.
     reset_counts()
@@ -838,6 +961,7 @@ def gradient_phase(torch, dev, scene, cfg, card, reset_counts, read_counts):
     ev[2].record()
     torch.cuda.synchronize()
     split_counts = read_counts()
+    split_vjp = recompute_vjp.launches
     peak_mib = (torch.cuda.max_memory_allocated() - mem_before) / 2**20
     finite = all(bool(torch.isfinite(g).all()) for g in grads0 if g is not None)
     finite = finite and all(math.isfinite(v) for v in res.losses)
@@ -853,6 +977,7 @@ def gradient_phase(torch, dev, scene, cfg, card, reset_counts, read_counts):
         pairs_kernel_launches=dict(target=target_counts[0],
                                    fit=fit_counts[0],
                                    timed_step=split_counts[0]),
+        recompute_vjp_launches=dict(fit=fit_vjp, timed_step=split_vjp),
         peak_memory_mib=peak_mib,
         peak_memory_process_mib=torch.cuda.max_memory_allocated() / 2**20,
         card=card,
@@ -862,6 +987,7 @@ def gradient_phase(torch, dev, scene, cfg, card, reset_counts, read_counts):
         target_counts == [bands, 0, 0, 0]
         and fit_counts == [bands * FIT_STEPS, 0, 0, 0]
         and split_counts == [bands, 0, 0, 0]
+        and fit_vjp == bands * FIT_STEPS and split_vjp == bands
     )
     if overflow != 0 or not finite or not counts_ok:
         fail(f"the 4K depth-8 fit went wrong: {fit_path}")
@@ -889,6 +1015,8 @@ def gradient_phase(torch, dev, scene, cfg, card, reset_counts, read_counts):
         ) < RECOMPUTE_CLOSE_MIN:
             fail(f"the recompute of 4K band {b} departs from the kernel's "
                  f"rows: {band}")
+
+    vjp = vjp_band_checks(torch, start, fcfg)
 
     # -- grad_vs_plain: 1080p depth 6, kernel vs its plain version ------
     pcfg = dataclasses.replace(cfg, algorithm="pallas")
@@ -944,31 +1072,14 @@ def gradient_phase(torch, dev, scene, cfg, card, reset_counts, read_counts):
         return gbuffer_loss(SceneParams.from_leaves(leaves),
                             gtarget.position, gtarget.normal, cfg, device=dev)
 
-    with torch.no_grad():
-        outs = binned._gbuffer_primal(cfg, cfg.width, cfg.height, scene,
-                                      (0.0, 0.0))
-
-    def recompute():
-        leaves = [x.detach().clone().requires_grad_(True)
-                  for x in scene.leaves()]
-        return binned._gbuffer_recompute(
-            cfg, cfg.width, cfg.height, SceneParams.from_leaves(leaves),
-            (0.0, 0.0), outs[8], outs[9],
-        )
-
     grad_step()
     grad_ms = event_ms(torch, grad_step, 5)
     forward_ms = event_ms(torch, forward_only, 5)
-    recompute_ms = event_ms(torch, recompute, 5)
     prof = profile_device(torch, grad_step, 3)
     emit(
         "grad_times", card=card, width=cfg.width, height=cfg.height,
         depth=cfg.max_depth, algorithm="binned", grad_ms=grad_ms,
-        split_ms=dict(
-            forward=forward_ms, backward=grad_ms - forward_ms,
-            recompute=recompute_ms,
-            vjp=grad_ms - forward_ms - recompute_ms,
-        ),
+        split_ms=dict(forward=forward_ms, backward=grad_ms - forward_ms),
         device_profile=(dict(
             **prof, idle_share=1.0 - prof["busy_ms"] / grad_ms
         ) if prof else "profiler reported no device time"),
@@ -976,7 +1087,9 @@ def gradient_phase(torch, dev, scene, cfg, card, reset_counts, read_counts):
     )
     return dict(
         fit_pairs_kernel=target_counts[0] + fit_counts[0] + split_counts[0],
+        fit_recompute_vjp=fit_vjp + split_vjp,
         pairs_kernel=path_launches[0], traverse_kernel=path_launches[1],
+        vjp=vjp,
     )
 
 
@@ -2225,6 +2338,7 @@ def main(argv) -> int:
     from sphereflake_tpu_torch.config import RenderConfig, default_scene
     from sphereflake_tpu_torch.ops import binned
     from sphereflake_tpu_torch.ops import pallas_traversal as ptrav
+    from sphereflake_tpu_torch.ops.recompute_vjp import recompute_vjp
     from sphereflake_tpu_torch.ops.binned import (
         camera_vector,
         trace_pairs_fused_plain,
@@ -2676,7 +2790,10 @@ def main(argv) -> int:
                trace_pairs_pallas_soa, ptrav.trace_tiles_pallas_soa)
 
     def reset_counts():
-        for wrapper in counted:
+        # The backward's kernel is reset with the four and read apart
+        # (`recompute_vjp.launches`, after `read_counts`): `read_counts`
+        # stays the four forward kernels' list every phase compares.
+        for wrapper in (*counted, recompute_vjp):
             wrapper.launches = 0
 
     def read_counts():
@@ -3479,6 +3596,7 @@ def main(argv) -> int:
     grad_launches = gradient_phase(
         torch, dev, scene, cfg, card, reset_counts, read_counts
     )
+    vjp = grad_launches["vjp"]
     path_launches[0] += (grad_launches["fit_pairs_kernel"]
                          + grad_launches["pairs_kernel"])
     k4_path_launches += grad_launches["traverse_kernel"]
@@ -3521,8 +3639,10 @@ def main(argv) -> int:
     k4_path_launches += multi[3]
 
     # ---- phase 5: the kernels line, the card, the verdict ----------
-    # The three launch modes of one source, and the traversal kernel.
-    # `launches` sums the main paths' runs (each counted from 0: frames,
+    # The three launch modes of one source, the traversal kernel and the
+    # backward's kernel (its `launches`: the 4K fit's steps and its timed
+    # step, each counted from 0 and gated in `fit_path`; it replaces no
+    # TPU kernel). For the four forward kernels `launches` sums the main paths' runs (each counted from 0: frames,
     # the 24-step frameless run, the three frameless CLI runs; pallas
     # frames and the CLI's pallas sample unit; the 4K fit and the
     # 1080p gradients with the kernels; the pallas side of the
@@ -3569,6 +3689,16 @@ def main(argv) -> int:
                 k4_sobol_wide, k4_straddle)),
             "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound_ms,
             "bound_by": k4_bound_by, "library_ms": None,
+        },
+        {
+            "name": "recompute_vjp", "route": "cuda",
+            "source": "sphereflake_tpu_torch/csrc/recompute_vjp.cu",
+            "replaces": None,
+            "launches": grad_launches["fit_recompute_vjp"],
+            "max_abs_err": vjp["max_abs_err"],
+            "ms": vjp["ms"], "plain_ms": vjp["plain_ms"],
+            "bound_ms": vjp["bound_ms"], "bound_by": vjp["bound_by"],
+            "library_ms": None,
         },
     ]}), flush=True)
     emit("total", seconds=round(time.perf_counter() - t_script, 1))

@@ -36,6 +36,7 @@ NVCC_FLAGS = (
 SOURCES = {
     "pairs_kernel": "pairs_kernel.cu",
     "traverse_kernel": "traverse_kernel.cu",
+    "recompute_vjp": "recompute_vjp.cu",
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

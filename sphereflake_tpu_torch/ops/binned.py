@@ -39,6 +39,7 @@ import torch
 
 from sphereflake_tpu_torch import kernels, spans
 from sphereflake_tpu_torch.config import FractalParams, RenderConfig
+from sphereflake_tpu_torch.ops.recompute_vjp import level_radii, recompute_vjp
 
 _BIG = 3.0e38  # rounds to np.float32(3.0e38) in every f32 tensor op
 
@@ -1089,20 +1090,11 @@ def _gbuffer_primal(cfg: RenderConfig, frame_w, frame_h, scene, offs):
     return (min_t, px, py, pz, nx, ny, nz, hit, lo, hi, m, povf)
 
 
-def _gbuffer_recompute(cfg: RenderConfig, frame_w, frame_h, scene, offs,
-                       lo, hi):
-    """The differentiable surface of one block, h(scene) of the
-    reference's custom JVP: the block's raygen in the kernel's flat tile
-    order, the winner re-derived from the (detached) path codes by
-    `resolve_codes_soa`, then the shading. Returns the 7 differentiable
-    outputs (min_t, px, py, pz, nx, ny, nz), each [T*1024]."""
+def _band_rays(cfg: RenderConfig, frame_w, frame_h, scene, offs):
+    """The block's unit ray directions (dx, dy, dz), each [T*1024], in
+    the kernel's flat tile order: its raygen, differentiable in the
+    camera."""
     from sphereflake_tpu_torch.camera import corner_rays
-    from sphereflake_tpu_torch.models.sphereflake import (
-        child_templates,
-        root_frame,
-    )
-    from sphereflake_tpu_torch.ops.intersect import safe_sqrt
-    from sphereflake_tpu_torch.ops.pallas_traversal import resolve_codes_soa
     from sphereflake_tpu_torch.render import _tile
 
     origin, tl, tr, bl = corner_rays(scene.camera, frame_w / frame_h)
@@ -1118,11 +1110,19 @@ def _gbuffer_recompute(cfg: RenderConfig, frame_w, frame_h, scene, offs,
     ) / origin.new_tensor(float(frame_h))
     comps = [(tl[a] + (ex[a] * u + ey[a] * v)) - origin[a] for a in range(3)]
     dnorm = torch.sqrt(comps[0] ** 2 + comps[1] ** 2 + comps[2] ** 2)
-    dx, dy, dz = (_tile(c / dnorm, cfg).reshape(-1) for c in comps)
-    root = root_frame(scene.camera.position)
-    templates = child_templates(scene.fractal)
+    return tuple(_tile(c / dnorm, cfg).reshape(-1) for c in comps)
+
+
+def _shade_codes(dx, dy, dz, lo, hi, root, templates, fractal, cfg):
+    """The rays' winners re-derived from the (detached) path codes by
+    `resolve_codes_soa`, then the shading: the 7 outputs (min_t, px, py,
+    pz, nx, ny, nz), each [N]. The plain chain that
+    `ops/recompute_vjp.py`'s kernel differentiates in one pass."""
+    from sphereflake_tpu_torch.ops.intersect import safe_sqrt
+    from sphereflake_tpu_torch.ops.pallas_traversal import resolve_codes_soa
+
     min_t, cx, cy, cz, hit = resolve_codes_soa(
-        dx, dy, dz, lo, root, templates, scene.fractal, cfg,
+        dx, dy, dz, lo, root, templates, fractal, cfg,
         code_hi_f=hi if cfg.max_depth >= 7 else None,
     )
     t0 = torch.where(hit, min_t, torch.zeros_like(min_t))
@@ -1134,6 +1134,25 @@ def _gbuffer_recompute(cfg: RenderConfig, frame_w, frame_h, scene, offs,
     return (min_t, px, py, pz, hf * (wx / nn), hf * (wy / nn), hf * (wz / nn))
 
 
+def _gbuffer_recompute(cfg: RenderConfig, frame_w, frame_h, scene, offs,
+                       lo, hi):
+    """The differentiable surface of one block, h(scene) of the
+    reference's custom JVP: the block's raygen in the kernel's flat tile
+    order (`_band_rays`), the winner re-derived from the (detached) path
+    codes and the shading (`_shade_codes`). Returns the 7 differentiable
+    outputs (min_t, px, py, pz, nx, ny, nz), each [T*1024]."""
+    from sphereflake_tpu_torch.models.sphereflake import (
+        child_templates,
+        root_frame,
+    )
+
+    dx, dy, dz = _band_rays(cfg, frame_w, frame_h, scene, offs)
+    root = root_frame(scene.camera.position)
+    templates = child_templates(scene.fractal)
+    return _shade_codes(dx, dy, dz, lo, hi, root, templates, scene.fractal,
+                        cfg)
+
+
 class BinnedGBuffer(torch.autograd.Function):
     """The reference's custom JVP of the binned block
     (`_gbuffer_primal` + `_gbuffer_jvp`) as an autograd Function over
@@ -1141,14 +1160,17 @@ class BinnedGBuffer(torch.autograd.Function):
 
     forward: the kernel's primal (`_gbuffer_primal`, or the one named
     in the statics: the shared bin's), with no graph; it
-    saves the path codes and the leaves. backward: rebuilds
-    `_gbuffer_recompute` under grad from the saved, detached codes and
-    returns its vector-Jacobian product into the leaves — the
+    saves the path codes and the leaves. backward: the
     straight-through gradient of the reference (the discrete winner is
-    the kernel's, the distance and frame are re-derived). jvp: the same
-    recompute in forward mode. hit, the codes, the metrics and the
-    overflow are not differentiable; leaves that take no part (ssao)
-    get no gradient."""
+    the kernel's, the distance and frame are re-derived): under grad it
+    rebuilds the recompute's small differentiable front (the band's
+    raygen, the root frame, the child templates, the level radii), takes
+    the vector-Jacobian product of the rest (`_shade_codes`) from
+    `ops/recompute_vjp.py:recompute_vjp` (one kernel a band on the card,
+    its plain version on the CPU) and hands it to autograd over the
+    front, into the leaves. jvp: `_gbuffer_recompute` in forward mode.
+    hit, the codes, the metrics and the overflow are not
+    differentiable; leaves that take no part (ssao) get no gradient."""
 
     @staticmethod
     def forward(statics, offs, *leaves):
@@ -1171,36 +1193,52 @@ class BinnedGBuffer(torch.autograd.Function):
         ctx.mark_non_differentiable(*output[7:])
 
     @staticmethod
-    def _recompute(ctx, leaves):
+    def backward(ctx, *grads):
         from sphereflake_tpu_torch.config import SceneParams
+        from sphereflake_tpu_torch.models.sphereflake import (
+            child_templates,
+            root_frame,
+        )
 
         cfg, frame_w, frame_h, _primal = ctx.statics
         lo, hi = ctx.saved_tensors[:2]
-        with spans.span("gbuffer.recompute"):
-            return _gbuffer_recompute(
-                cfg, frame_w, frame_h, SceneParams.from_leaves(leaves),
-                ctx.offs, lo, hi,
-            )
-
-    @staticmethod
-    def backward(ctx, *grads):
         saved = ctx.saved_tensors[2:]
         wanted = ctx.needs_input_grad[2:]
         with torch.enable_grad():
             leaves = [
                 x.detach().requires_grad_(w) for x, w in zip(saved, wanted)
             ]
-            outs = BinnedGBuffer._recompute(ctx, leaves)
+            scene = SceneParams.from_leaves(leaves)
+            with spans.span("gbuffer.recompute"):
+                fractal = scene.fractal
+                front = (
+                    *_band_rays(cfg, frame_w, frame_h, scene, ctx.offs),
+                    root_frame(scene.camera.position),
+                    child_templates(fractal),
+                    fractal.radius_ratio, fractal.root_radius,
+                    level_radii(fractal, cfg.max_depth),
+                )
+                held = [f.detach() for f in front]
+                vjp = recompute_vjp(
+                    *held[:3], lo, hi, [g.contiguous() for g in grads[:7]],
+                    *held[3:], depth=cfg.max_depth,
+                )
+            tied = [(f, g) for f, g in zip(front, vjp) if f.requires_grad]
             inputs = [x for x, w in zip(leaves, wanted) if w]
             got = iter(torch.autograd.grad(
-                outs, inputs, grads[:7], allow_unused=True
-            ))
+                [f for f, _ in tied], inputs, [g for _, g in tied],
+                allow_unused=True,
+            ) if tied else [None] * len(inputs))
         return (None, None, *(next(got) if w else None for w in wanted))
 
     @staticmethod
     def jvp(ctx, _d_statics, _d_offs, *tangents):
         import torch.autograd.forward_ad as fwAD
 
+        from sphereflake_tpu_torch.config import SceneParams
+
+        cfg, frame_w, frame_h, _primal = ctx.statics
+        lo, hi = ctx.saved_tensors[:2]
         saved = ctx.saved_tensors[2:]
         # The Function's jvp runs with forward grad switched off; the
         # recompute needs it on (at the caller's dual level). The switch
@@ -1212,7 +1250,11 @@ class BinnedGBuffer(torch.autograd.Function):
                 x.detach() if t is None else fwAD.make_dual(x.detach(), t)
                 for x, t in zip(saved, tangents)
             ]
-            outs = BinnedGBuffer._recompute(ctx, leaves)
+            with spans.span("gbuffer.recompute"):
+                outs = _gbuffer_recompute(
+                    cfg, frame_w, frame_h, SceneParams.from_leaves(leaves),
+                    ctx.offs, lo, hi,
+                )
             d7 = tuple(
                 fwAD.unpack_dual(o).tangent
                 if fwAD.unpack_dual(o).tangent is not None
