@@ -10,6 +10,10 @@ program's state that the check does not read, `check` compares what the
 timed path produced with the reference, `profile` runs whole units
 under the profiler after the window, and `work` counts, for the traced
 run, the kernels' work on the reference's own candidate pairs.
+
+A driver is given the cell's cards (`devs`, one for each of its
+`chips`); `dev`, the first, is the home card, where a kind that runs on
+one card does all its work.
 """
 
 from __future__ import annotations
@@ -24,6 +28,14 @@ def ref_config(config: dict) -> dict:
                               "tile_h", "tile_w")}
 
 
+def devices(torch, device) -> list:
+    """`device` (one device, or a list of them) as a list of
+    `torch.device`."""
+    if isinstance(device, (list, tuple)):
+        return [torch.device(d) for d in device]
+    return [torch.device(device)]
+
+
 def program_config(config: dict):
     from sphereflake_tpu_torch.config import RenderConfig
 
@@ -34,7 +46,8 @@ class Driver:
     def __init__(self, torch, cell: dict, seed: int, device):
         self.torch = torch
         self.seed = int(seed)
-        self.dev = torch.device(device)
+        self.devs = devices(torch, device)
+        self.dev = self.devs[0]
         self.traffic = cell["traffic"]
         self.work_spec = cell["workload"]
         self.config = cell["config"]
@@ -44,8 +57,10 @@ class Driver:
         self.notes = {}
 
     def sync(self):
-        if self.dev.type == "cuda":
-            self.torch.cuda.synchronize(self.dev)
+        """Wait for every card of the cell."""
+        for d in self.devs:
+            if d.type == "cuda":
+                self.torch.cuda.synchronize(d)
 
     def release(self):
         """Free the program's state that the check does not read."""

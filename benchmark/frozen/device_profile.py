@@ -6,7 +6,10 @@ device's operations read back by name), copied when the benchmark was
 written and frozen here. Beside its sums it keeps the raw intervals, so
 that busy time is the union of the device's operations (not their sum)
 and every idle gap can be named by the host operation that was running
-in it.
+in it. The intervals are grouped by the card they ran on: each card's
+busy time is the union of its own operations, and `busy_s` the mean over
+the cards, so that one card's work never covers another's idle time. One
+card is the case of one group.
 """
 
 from __future__ import annotations
@@ -17,12 +20,14 @@ from collections import defaultdict
 
 
 def _raw_events(prof):
-    """[(name, is_device, start_s, end_s)] of a finished profiler session."""
+    """[(name, card, start_s, end_s)] of a finished profiler session; `card`
+    is the device index of a device operation, None for a host one."""
     out = []
     for e in prof.profiler.kineto_results.events():
         dev = str(e.device_type()).split(".")[-1].upper() != "CPU"
         start = e.start_ns() * 1e-9
-        out.append((e.name(), dev, start, start + e.duration_ns() * 1e-9))
+        out.append((e.name(), e.device_index() if dev else None, start,
+                    start + e.duration_ns() * 1e-9))
     return out
 
 
@@ -37,48 +42,66 @@ def union(intervals):
     return merged
 
 
-def profile(torch, fn, units: int, dev):
-    """Run `fn()` `units` times inside a profiler session; returns a dict:
-    `window_s` (host clock of the calls, between two synchronizes),
-    `busy_s` (union of the device's operations), `ops` (number of device
-    operations), `by_name` ({name: device seconds}), `idle_gaps`
-    ({host operation: idle seconds}) and `units`. None where the
-    profiler saw no device operation."""
+def profile(torch, fn, units: int, devs):
+    """Run `fn()` `units` times inside a profiler session, with every card
+    of `devs` synchronized at both ends; returns `summarize` of its
+    events, or None where the profiler saw no device operation."""
     from torch.profiler import ProfilerActivity, profile as _profile
 
-    torch.cuda.synchronize(dev)
+    def sync():
+        for d in devs:
+            torch.cuda.synchronize(d)
+
+    sync()
     with _profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize(dev)
+        sync()
         t0 = time.perf_counter()
         for _ in range(units):
             fn()
-        torch.cuda.synchronize(dev)
+        sync()
         window_s = time.perf_counter() - t0
-    events = _raw_events(prof)
-    device = [(s, e, n) for n, d, s, e in events if d and e > s]
+    return summarize(_raw_events(prof), window_s, units)
+
+
+def summarize(events, window_s: float, units: int):
+    """A dict from `_raw_events`' list: `window_s` (host clock of the
+    calls, between two synchronizes), `busy_s` (the mean over the cards
+    that ran an operation of the union of each card's operations),
+    `busy_s_per_device` ({card: its union}), `ops` (number of device
+    operations), `ops_per_device` ({card: its number}), `by_name` ({name:
+    device seconds, all cards}), `idle_gaps` ({host operation: idle
+    seconds between a card's operations, all cards}) and `units`. None
+    where there is no device operation."""
+    device = [(s, e, n, c) for n, c, s, e in events if c is not None and e > s]
     if not device:
         return None
     by_name = defaultdict(float)
-    for s, e, n in device:
+    cards = defaultdict(list)
+    for s, e, n, c in device:
         by_name[n] += e - s
-    busy = union([(s, e) for s, e, _ in device])
-    busy_s = sum(e - s for s, e in busy)
-    # Idle gaps between device operations, each named by the innermost
-    # host operation running at its middle (latest start among those
-    # that contain it).
-    host = sorted((s, e, n) for n, d, s, e in events if not d)
+        cards[c].append((s, e))
+    host = sorted((s, e, n) for n, c, s, e in events if c is None)
     starts = [h[0] for h in host]
+    busy_per = {}
     gaps = defaultdict(float)
-    for (_, e0), (s1, _) in zip(busy, busy[1:]):
-        mid = 0.5 * (e0 + s1)
-        name = "no host operation"
-        i = bisect.bisect_right(starts, mid) - 1
-        for j in range(i, max(i - 400, -1), -1):
-            if host[j][1] >= mid:
-                name = host[j][2]
-                break
-        gaps[name] += s1 - e0
-    return dict(window_s=window_s, busy_s=busy_s, ops=len(device),
+    for c, intervals in cards.items():
+        busy = union(intervals)
+        busy_per[c] = sum(e - s for s, e in busy)
+        # Idle gaps between the card's operations, each named by the
+        # innermost host operation running at its middle (latest start
+        # among those that contain it).
+        for (_, e0), (s1, _) in zip(busy, busy[1:]):
+            mid = 0.5 * (e0 + s1)
+            name = "no host operation"
+            i = bisect.bisect_right(starts, mid) - 1
+            for j in range(i, max(i - 400, -1), -1):
+                if host[j][1] >= mid:
+                    name = host[j][2]
+                    break
+            gaps[name] += s1 - e0
+    return dict(window_s=window_s, busy_s=sum(busy_per.values()) / len(busy_per),
+                busy_s_per_device=busy_per, ops=len(device),
+                ops_per_device={c: len(v) for c, v in cards.items()},
                 by_name=dict(by_name), idle_gaps=dict(gaps), units=units)
 
 

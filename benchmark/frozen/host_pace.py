@@ -2,8 +2,9 @@
 
 `launch_us` is copied from the program's `host_pace.py` when the
 benchmark was written and frozen here. Every run prints its reading on
-an earlier line, beside the card's clocks and power, to explain the
-run-to-run spread of host-bound cells; it is not a metric.
+an earlier line, beside the clocks and power of each of the cell's
+cards, to explain the run-to-run spread of host-bound cells; it is not a
+metric.
 """
 
 from __future__ import annotations
@@ -27,17 +28,30 @@ def launch_us(torch, dev, n: int = 2000, repeats: int = 5) -> list:
     return out
 
 
-def card_state() -> dict:
-    """The card's name, clocks, power and temperature as `nvidia-smi`
-    reads them (an empty dict where it cannot)."""
-    keys = ("name", "clocks.sm", "clocks.mem", "power.draw", "power.limit",
-            "temperature.gpu")
+KEYS = ("name", "clocks.sm", "clocks.mem", "power.draw", "power.limit",
+        "temperature.gpu")
+
+
+def card_state(torch, devs):
+    """Each card of `devs`, in order: its name, clocks, power and
+    temperature as `nvidia-smi` reads them (an empty dict where it cannot).
+    One card gives its dict, several a list of them. A card is found by
+    its UUID, else by its index."""
     try:
-        line = subprocess.run(
-            ["nvidia-smi", f"--query-gpu={','.join(keys)}",
+        lines = subprocess.run(
+            ["nvidia-smi", f"--query-gpu=uuid,{','.join(KEYS)}",
              "--format=csv,noheader"],
             capture_output=True, text=True, timeout=20, check=True,
-        ).stdout.strip().splitlines()[0]
-    except (OSError, subprocess.SubprocessError, IndexError):
-        return {}
-    return dict(zip(keys, (s.strip() for s in line.split(","))))
+        ).stdout.strip().splitlines()
+    except (OSError, subprocess.SubprocessError):
+        lines = []
+    rows = [[s.strip() for s in line.split(",")] for line in lines]
+    states = []
+    for d in devs:
+        # nvidia-smi writes "GPU-<uuid>"; its order may not be CUDA's.
+        uuid = str(getattr(torch.cuda.get_device_properties(d), "uuid", ""))
+        row = next((r for r in rows if uuid and uuid in r[0]), None)
+        if row is None and d.index < len(rows):
+            row = rows[d.index]
+        states.append(dict(zip(KEYS, row[1:])) if row else {})
+    return states[0] if len(states) == 1 else states

@@ -3,12 +3,13 @@
     python3 benchmark/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 (or `python3 -m benchmark.run ...`) from the root of a checkout, on a
-machine with the card(s) the cell asks for. It loads the cell's files
+machine with the cards the cell asks for; the run is given `cuda:0` to
+`cuda:{chips - 1}`. It loads the cell's files
 (`spec.py`), makes the inputs from the seed and warms up (set-up),
 measures whole frames or steps for `--seconds`, and then, with the
 program's state freed, checks what the window produced against the
 plain reference. It prints an earlier line with the host's launch pace,
-the card's clocks and power and the cell's counters, the compared numbers
+each card's clocks and power and the cell's counters, the compared numbers
 beside their limits as the last lines of standard error, and one JSON
 object as the last line of standard output.
 
@@ -16,6 +17,12 @@ object as the last line of standard output.
 per-layer metrics, from spans around calls into the program's layers
 during the window and a profiler session over whole frames or steps
 after it. Without a usable card it prints no result and exits 2.
+
+`device.count` is measured, never copied from the cell: the cards on
+which the run allocated memory (whose peak rose above what they held
+when it began: 0 in a fresh process) and, in a traced run, on which the
+profiler saw an operation. A run that used fewer cards than it was given
+says so on standard error.
 """
 
 from __future__ import annotations
@@ -50,18 +57,33 @@ def forbidden_modules(modules=None) -> list:
     return sorted({m.split(".")[0] for m in names} & FORBIDDEN)
 
 
+def cards_used(rises, ops=None) -> int:
+    """The number of cards on which the run allocated memory (`rises`:
+    each card's peak bytes above what it held when the run began) and, in
+    a traced run (`ops`: each card's device operations in the profile),
+    did work."""
+    if ops is None:
+        ops = [1] * len(rises)
+    return sum(1 for r, n in zip(rises, ops) if r > 0 and n > 0)
+
+
 def run(torch, cell: dict, seed: int, seconds: float, trace: bool, device,
         t0: float = _T0) -> dict:
-    """One run of `cell`; returns the result dict (and the earlier line's
-    `notes`, the checks' rows) without printing."""
-    dev = torch.device(device)
+    """One run of `cell` on `device` (one device, or the cell's list of
+    cards, the home card first); returns the result dict (and the earlier
+    line's `notes`, the checks' rows) without printing."""
+    devs = drivers.devices(torch, device)
+    dev = devs[0]
     cuda = dev.type == "cuda"
     notes = {}
+    held = [0] * len(devs)
     if cuda:
         notes["launch_us"] = host_pace.launch_us(torch, dev)
-        notes["card_before"] = host_pace.card_state()
-        torch.cuda.reset_peak_memory_stats(dev)
-    drv = drivers.make(torch, cell, seed, dev)
+        notes["card_before"] = host_pace.card_state(torch, devs)
+        for d in devs:
+            torch.cuda.reset_peak_memory_stats(d)
+        held = [torch.cuda.memory_allocated(d) for d in devs]
+    drv = drivers.make(torch, cell, seed, devs)
     drv.setup()
     drv.sync()
     # What set-up made stays: the collector's passes in the window then
@@ -80,14 +102,14 @@ def run(torch, cell: dict, seed: int, seconds: float, trace: bool, device,
     attempted = drv.attempted
     e2e = drv.end_to_end(window_s, times)
     if cuda:
-        notes["card_after"] = host_pace.card_state()
+        notes["card_after"] = host_pace.card_state(torch, devs)
 
     prof, profiled = None, None
     if trace:
         prof, profiled = drv.profile(
             int(cell["workload"]["profile_units"]),
-            lambda fn, n: _profile(torch, fn, n, dev))
-    peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+            lambda fn, n: _profile(torch, fn, n, devs))
+    peaks = [torch.cuda.max_memory_allocated(d) if cuda else 0 for d in devs]
 
     drv.release()
     gc.unfreeze()
@@ -117,16 +139,31 @@ def run(torch, cell: dict, seed: int, seconds: float, trace: bool, device,
                    for m in cell["end_to_end"] if m["name"] != "setup_s"}
         metrics["setup_s"] = {"value": setup_s, "unit": "s"}
 
+    if cuda:
+        ops = None
+        if trace:
+            ops = [prof["ops_per_device"].get(d.index, 0) if prof else 0
+                   for d in devs]
+        count = cards_used([p - h for p, h in zip(peaks, held)], ops)
+    else:
+        # The CPU keeps no allocator statistics; the tests' runs use it.
+        count = len(set(devs))
+    if count < len(devs):
+        print(f"benchmark: cell {cell['name']} used {count} of {len(devs)} cards",
+              file=sys.stderr)
     dev_info = {
         "platform": "gpu" if cuda else dev.type,
         "kind": torch.cuda.get_device_name(dev) if cuda else dev.type,
-        "count": 1,
-        "memory_peak_bytes": peak,
+        "count": count,
+        "memory_peak_bytes": max(peaks),
+        "memory_peak_bytes_per_device": peaks,
     }
     result = {"correct": correct, "attempted": attempted, "failed": failed,
               "metrics": metrics, "device": dev_info}
     if trace and prof is not None:
         dev_info["busy_s"] = prof["busy_s"]
+        dev_info["busy_s_per_device"] = [prof["busy_s_per_device"].get(d.index, 0.0)
+                                         for d in devs]
         dev_info["window_s"] = prof["window_s"]
         result["breakdown"] = {
             "device_ops": device_profile.top(prof["by_name"]),
@@ -138,10 +175,10 @@ def run(torch, cell: dict, seed: int, seconds: float, trace: bool, device,
     return dict(result=result, notes=notes, rows=rows)
 
 
-def _profile(torch, fn, n, dev):
-    if torch.device(dev).type != "cuda":
+def _profile(torch, fn, n, devs):
+    if devs[0].type != "cuda":
         return None
-    return device_profile.profile(torch, fn, n, dev)
+    return device_profile.profile(torch, fn, n, devs)
 
 
 def main(argv=None) -> int:
@@ -162,11 +199,17 @@ def main(argv=None) -> int:
               f"torch.cuda.is_available() = {torch.cuda.is_available()}",
               file=sys.stderr)
         return 2
+    devices = [f"cuda:{i}" for i in range(chips)]
+    names = [torch.cuda.get_device_name(d) for d in devices]
+    if len(set(names)) > 1:
+        print(f"benchmark: cell {args.workload}'s cards are not all of one kind: "
+              f"{names}", file=sys.stderr)
+        return 2
     # The program's kernel libraries are built into, and served from, a
     # fixed directory inside the checkout.
     os.environ["SPHEREFLAKE_TORCH_BUILD_DIR"] = os.path.join(
         ROOT, "build", "sphereflake_tpu_torch")
-    out = run(torch, cell, args.seed, args.seconds, bool(args.trace), "cuda:0")
+    out = run(torch, cell, args.seed, args.seconds, bool(args.trace), devices)
     bad = forbidden_modules()
     if bad:
         print(f"benchmark: forbidden modules loaded: {bad}", file=sys.stderr)

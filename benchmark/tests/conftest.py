@@ -30,6 +30,15 @@ def card():
     return torch.device("cuda:0")
 
 
+@pytest.fixture
+def cards4():
+    import torch
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("fewer than 4 CUDA cards: this test runs on four")
+    return [torch.device(f"cuda:{i}") for i in range(4)]
+
+
 @pytest.fixture(scope="session")
 def tiny_dir(tmp_path_factory):
     from benchmark.tests import tiny

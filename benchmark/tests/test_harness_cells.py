@@ -19,8 +19,11 @@ def test_cell_runs_and_is_correct(name, tiny_dir):
     cell = tiny.cell(name, tiny_dir)
     out = run.run(torch, cell, SEED, 0.3, False, "cpu")
     res = out["result"]
-    assert list(res)[:5] == ["correct", "attempted", "failed", "metrics", "device"]
-    assert list(res)[-1] == "checks"
+    assert list(res) == ["correct", "attempted", "failed", "metrics", "device", "checks"]
+    assert list(res["device"]) == ["platform", "kind", "count", "memory_peak_bytes",
+                                   "memory_peak_bytes_per_device"]
+    assert res["device"]["count"] == 1
+    assert res["device"]["memory_peak_bytes_per_device"] == [res["device"]["memory_peak_bytes"]]
     assert res["correct"] is True, res["checks"]
     assert res["attempted"] >= 1 and res["failed"] == 0
     want = {m["name"] for m in cell["end_to_end"]}
@@ -49,6 +52,7 @@ def test_traced_run_reads_its_spans(name, tiny_dir):
     cell = tiny.cell(name, tiny_dir)
     out = run.run(torch, cell, SEED, 0.3, True, "cpu")
     res = out["result"]
+    assert res["device"]["count"] == 1
     allowed = {m["name"] for m in cell["per_layer"]}
     assert set(res["metrics"]) <= allowed
     spans = cell["traffic"].get("spans", {})
