@@ -69,7 +69,7 @@ def expand_global(
     templates: torch.Tensor,  # [9, 3, 4]
     fractal: FractalParams,
     cfg: RenderConfig,
-    frame_planes: torch.Tensor,  # [4, 3] inward unit planes of the whole frame
+    frame_planes: torch.Tensor,  # [4, 3] (or [B, 4, 3]) inward unit planes
 ):
     """Levelwise SoA expansion of the whole LOD-passing tree.
 
@@ -82,10 +82,17 @@ def expand_global(
     Path codes ride two lanes (code = hi * 9^7 + lo) so depths past 7
     stay exact in f32 kernel rows (`DEEP_MAX_DEPTH` = 13).
 
-    Returns (nodes dict with [N] component tensors over all levels
-    concatenated — cx, cy, cz, cc, r2, code (lo, int32),
+    `frame_planes` of shape [B, 4, 3] expands B blocks (the bands of
+    one frame) at once: every op is one launch for all of them, and
+    block b's nodes and overflow equal those of its own [4, 3] call bit
+    for bit (the same elementwise ops on the same values, one stable
+    sort per block). Until the first compaction the blocks share every
+    node and differ only in `live`.
+
+    Returns (nodes dict with [N] ([B, N]) component tensors over all
+    levels concatenated — cx, cy, cz, cc, r2, code (lo, int32),
     code_hi (int32), live (bool), rad — and the compaction overflow
-    count, a 0-d int32 tensor).
+    count, a 0-d ([B]) int32 tensor).
     """
     assert cfg.max_depth <= DEEP_MAX_DEPTH, (
         f"binned path supports max_depth <= {DEEP_MAX_DEPTH} "
@@ -97,17 +104,21 @@ def expand_global(
     lod_sq = torch.tensor(cfg.lod_factor**2, dtype=torch.float32, device=dev)
     ratio = fractal.radius_ratio
     radius0 = fractal.root_radius
+    batched = frame_planes.dim() == 3
+    planes = frame_planes if batched else frame_planes[None]
+    nb = planes.shape[0]
 
     rot = [[templates[:, a, b] for b in range(3)] for a in range(3)]  # [9]
     disp = [templates[:, a, 3] for a in range(3)]
 
-    # Level 0: the root frame.
-    r = [root[a, b].reshape(1) for a in range(3) for b in range(3)]
-    t = [root[a, 3].reshape(1) for a in range(3)]
-    lo = torch.ones((1,), dtype=torch.int32, device=dev)
-    hi = torch.zeros((1,), dtype=torch.int32, device=dev)
-    live = torch.ones((1,), dtype=torch.bool, device=dev)
-    overflow = torch.zeros((), dtype=torch.int32, device=dev)
+    # Level 0: the root frame. Node arrays are [1 or B, N]: one row
+    # shared by every block until a compaction gives each its own.
+    r = [root[a, b].reshape(1, 1) for a in range(3) for b in range(3)]
+    t = [root[a, 3].reshape(1, 1) for a in range(3)]
+    lo = torch.ones((1, 1), dtype=torch.int32, device=dev)
+    hi = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+    live = torch.ones((1, 1), dtype=torch.bool, device=dev)
+    overflow = torch.zeros((nb,), dtype=torch.int32, device=dev)
 
     out = {k: [] for k in ("cx", "cy", "cz", "cc", "r2", "code",
                             "code_hi", "live", "rad")}
@@ -120,17 +131,16 @@ def expand_global(
         keep = live & (cc < lim * lim)
         for p in range(4):
             d_p = (
-                frame_planes[p, 0] * cx
-                + frame_planes[p, 1] * cy
-                + frame_planes[p, 2] * cz
+                planes[:, p, 0, None] * cx
+                + planes[:, p, 1, None] * cy
+                + planes[:, p, 2, None] * cz
             )
             keep = keep & (d_p >= -2.0 * radius)
         return keep
 
     def emit(t, lo, hi, live, radius):
         cx, cy, cz = t
-        n = cx.shape[0]
-        ones = torch.ones((n,), dtype=torch.float32, device=dev)
+        ones = torch.ones(cx.shape, dtype=torch.float32, device=dev)
         out["cx"].append(cx)
         out["cy"].append(cy)
         out["cz"].append(cz)
@@ -147,17 +157,22 @@ def expand_global(
         first, so the over-cap drop policy is LOD-consistent — the
         FARTHEST nodes go, never the near subtree an approach dive
         exists to reveal."""
-        total_all = live.sum(dtype=torch.int32)
+        total_all = live.sum(dim=-1, dtype=torch.int32)
         cc = t[0] * t[0] + t[1] * t[1] + t[2] * t[2]
         key = torch.where(live, cc, torch.full_like(cc, _BIG))
-        idx = torch.sort(key, stable=True).indices[:cap]
+        idx = torch.sort(key, dim=-1, stable=True).indices[:, :cap]
         total = torch.clamp_max(total_all, cap)
-        new_live = torch.arange(cap, dtype=torch.int32, device=dev) < total
+        new_live = (torch.arange(cap, dtype=torch.int32, device=dev)
+                    < total[:, None])
+
+        def take(x):
+            return torch.gather(x.expand(nb, x.shape[1]), 1, idx)
+
         return (
-            [x[idx] for x in r],
-            [x[idx] for x in t],
-            lo[idx],
-            hi[idx],
+            [take(x) for x in r],
+            [take(x) for x in t],
+            take(lo),
+            take(hi),
             new_live,
             torch.clamp_min(total_all - cap, 0),
         )
@@ -168,7 +183,8 @@ def expand_global(
     ecap = _expand_cap(cfg)
     j9 = torch.arange(9, dtype=torch.int32, device=dev)[:, None]
     for _level in range(depth):
-        if 9 * live.shape[0] > cap and live.shape[0] > ecap:
+        n = live.shape[1]
+        if 9 * n > cap and n > ecap:
             # Children would exceed the cap. Only parents that can
             # produce a LOD-passing child need to survive: a child's
             # emit cull needs |c_child| < lod^2*r_c + 2*r_c, and
@@ -181,28 +197,29 @@ def expand_global(
             r, t, lo, hi, live, ovf = compact(r, t, lo, hi, gate, ecap)
             overflow = overflow + ovf
         scale = (1.0 + ratio) * radius
-        # Children: [9, N] via broadcasting template constants.
+        # Children: [., 9, N] via broadcasting template constants.
         new_r = [
-            sum(r[3 * a + k][None, :] * rot[k][b][:, None] for k in range(3))
+            sum(r[3 * a + k][:, None, :] * rot[k][b][:, None]
+                for k in range(3))
             for a in range(3)
             for b in range(3)
         ]
         new_t = [
-            sum(r[3 * a + k][None, :] * (scale * disp[k])[:, None]
+            sum(r[3 * a + k][:, None, :] * (scale * disp[k])[:, None]
                 for k in range(3))
-            + t[a][None, :]
+            + t[a][:, None, :]
             for a in range(3)
         ]
-        lo9 = lo[None, :] * 9 + j9
+        lo9 = lo[:, None, :] * 9 + j9
         carry = torch.div(lo9, _POW7, rounding_mode="floor")
         lo = lo9 - carry * _POW7
-        hi = hi[None, :] * 9 + carry
-        n9 = lo.shape[0] * lo.shape[1]
-        r = [x.reshape(n9) for x in new_r]
-        t = [x.reshape(n9) for x in new_t]
-        lo = lo.reshape(n9)
-        hi = hi.reshape(n9)
-        live = live[None, :].expand(9, live.shape[0]).reshape(n9)
+        hi = hi[:, None, :] * 9 + carry
+        n9 = 9 * lo.shape[2]
+        r = [x.reshape(x.shape[0], n9) for x in new_r]
+        t = [x.reshape(x.shape[0], n9) for x in new_t]
+        lo = lo.reshape(lo.shape[0], n9)
+        hi = hi.reshape(hi.shape[0], n9)
+        live = live[:, None, :].expand(-1, 9, -1).reshape(-1, n9)
         radius = radius * ratio
         live = cull(t, live, radius)
         # Compact wide levels before emission too, so the binning
@@ -212,7 +229,10 @@ def expand_global(
             overflow = overflow + ovf
         emit(t, lo, hi, live, radius)
 
-    nodes = {k: torch.cat(v) for k, v in out.items()}
+    nodes = {k: torch.cat([x.expand(nb, x.shape[1]) for x in v], dim=1)
+             for k, v in out.items()}
+    if not batched:
+        return {k: v[0] for k, v in nodes.items()}, overflow[0]
     return nodes, overflow
 
 
@@ -240,7 +260,11 @@ def bin_geometry(nodes, minv, cfg: RenderConfig, frame=None, corners=None):
     """Per-node screen-space geometry of the pair fill (all elementwise
     — no scatters/sorts): conservative tile ranges from interval
     arithmetic in the corner-ray basis, the behind-camera cull, and
-    the pair-slot layout (counts / first / n_pairs)."""
+    the pair-slot layout (counts / first / n_pairs).
+
+    Nodes of B blocks at once ([B, N] arrays, from a batched
+    `expand_global`) take `corners` [B, 4, 3] and a frame whose y_off is
+    a [B, 1] tensor; each block's geometry equals its own call's."""
     pair_cap = cfg.pair_cap
     tw, th = cfg.tile_w, cfg.tile_h
     tx_n, ty_n = cfg.tiles_x, cfg.tiles_y
@@ -312,18 +336,19 @@ def bin_geometry(nodes, minv, cfg: RenderConfig, frame=None, corners=None):
         for i in range(4):
             cd = torch.maximum(
                 cd,
-                corners[i, 0] * c[0] + corners[i, 1] * c[1]
-                + corners[i, 2] * c[2],
+                corners[..., i, 0, None] * c[0]
+                + corners[..., i, 1, None] * c[1]
+                + corners[..., i, 2, None] * c[2],
             )
         keep = keep & (cd >= 0.0)
     counts = torch.where(keep, bw * (ty1 - ty0 + 1), zero)
 
-    offsets = torch.cumsum(counts, dim=0, dtype=torch.int32)  # inclusive
-    n_pairs = offsets[-1]
+    offsets = torch.cumsum(counts, dim=-1, dtype=torch.int32)  # inclusive
+    n_pairs = offsets[..., -1]
     pair_overflow = torch.clamp_min(n_pairs - pair_cap, 0)
 
     first = offsets - counts
-    n_nodes = counts.shape[0]
+    n_nodes = counts.shape[-1]
     return dict(
         tx0=tx0, ty0=ty0, bw=bw, counts=counts, first=first,
         n_pairs=n_pairs, n_nodes=n_nodes, pair_overflow=pair_overflow,
@@ -361,16 +386,26 @@ def _decode_tiles_window(geo, cfg: RenderConfig, lo: int, width: int):
     iota_n = torch.arange(n_nodes, dtype=torch.int32, device=dev)
     iota_p = lo + torch.arange(width, dtype=torch.int32, device=dev)
     in_table = (counts > 0) & (first < pair_cap)
-    last_node = torch.max(torch.where(in_table, iota_n, torch.zeros_like(iota_n)))
-    pair_valid = iota_p < n_pairs  # offsets are gapless
-    owner = torch.searchsorted(offsets, iota_p, right=True, out_int32=True)
+    last_node = torch.amax(
+        torch.where(in_table, iota_n, torch.zeros_like(iota_n)),
+        dim=-1, keepdim=True,
+    )
+    pair_valid = iota_p < n_pairs[..., None]  # offsets are gapless
+    owner = torch.searchsorted(
+        offsets, iota_p.expand(*offsets.shape[:-1], width).contiguous(),
+        right=True, out_int32=True,
+    )
     pair_node = torch.where(pair_valid, owner, last_node)
 
     node_l = pair_node.long()
-    pair_rank = iota_p - first[node_l]
-    nb_w = bw[node_l]
-    p_tx = tx0[node_l] + pair_rank % nb_w
-    p_ty = ty0[node_l] + torch.div(pair_rank, nb_w, rounding_mode="floor")
+
+    def of_node(x):
+        return torch.gather(x, -1, node_l)
+
+    pair_rank = iota_p - of_node(first)
+    nb_w = of_node(bw)
+    p_tx = of_node(tx0) + pair_rank % nb_w
+    p_ty = of_node(ty0) + torch.div(pair_rank, nb_w, rounding_mode="floor")
     tile = torch.where(
         pair_valid,
         torch.clamp_max(p_ty * tx_n + p_tx, n_tiles),
@@ -392,7 +427,7 @@ def _sort_pairs(tile, pair_node, n_nodes: int, n_tiles: int):
         node_sorted = packed & ((1 << node_bits) - 1)
     else:
         tile_sorted, order = torch.sort(tile, stable=True)
-        node_sorted = pair_node[order]
+        node_sorted = torch.gather(pair_node, -1, order)
     return tile_sorted, node_sorted
 
 
@@ -415,7 +450,7 @@ def node_rows(nodes, cfg: RenderConfig):
         row_list.append(nodes["code_hi"].to(torch.float32))
     row_list.append(lod_sq_f * torch.sqrt(torch.clamp_min(r2_n, 0.0)))
     row_list.append(4.0 * r2_n - cc_n)
-    return torch.stack(row_list)
+    return torch.stack(row_list, dim=-2)
 
 
 def bin_nodes(nodes, minv, cfg: RenderConfig, frame=None, corners=None):
@@ -434,7 +469,8 @@ def bin_nodes(nodes, minv, cfg: RenderConfig, frame=None, corners=None):
     ENTIRE tile grid (the conservative straddle fallback).
 
     Returns (pairs [7|8, cfg.pair_cap], starts [T], lens [T], (n_pairs,
-    pair_overflow))."""
+    pair_overflow)); for the nodes of B blocks (`bin_geometry`), each
+    with a leading [B]."""
     pair_cap = cfg.pair_cap
     n_tiles = cfg.tiles_x * cfg.tiles_y
     geo = bin_geometry(nodes, minv, cfg, frame=frame, corners=corners)
@@ -443,19 +479,24 @@ def bin_nodes(nodes, minv, cfg: RenderConfig, frame=None, corners=None):
     tile, pair_node = _decode_tiles_window(geo, cfg, 0, pair_cap)
     tile_sorted, node_sorted = _sort_pairs(tile, pair_node, n_nodes, n_tiles)
     rows = node_rows(nodes, cfg)  # [7|8, N]
-    pairs = rows[:, node_sorted.long()]  # [R, pair_cap]
+    pairs = torch.gather(  # [R, pair_cap]
+        rows, -1,
+        node_sorted.long()[..., None, :].expand(*rows.shape[:-1], pair_cap),
+    )
     # Dead pairs (tile == n_tiles) sit at the end; starts/lens ignore
     # them, but stamp rc = -BIG defensively (disc = tca^2 + rc can then
     # never reach 0) so no ray test can ever pass on them.
     dead = tile_sorted >= n_tiles
-    pairs[3] = torch.where(dead, torch.full_like(pairs[3], -_BIG), pairs[3])
+    rc = pairs[..., 3, :]
+    pairs[..., 3, :] = torch.where(dead, torch.full_like(rc, -_BIG), rc)
 
     bounds = torch.searchsorted(
         tile_sorted,
-        torch.arange(n_tiles + 1, dtype=torch.int32, device=tile_sorted.device),
+        torch.arange(n_tiles + 1, dtype=torch.int32, device=tile_sorted.device)
+        .expand(*tile_sorted.shape[:-1], n_tiles + 1).contiguous(),
         out_int32=True,
     )
-    starts, lens = bounds[:-1], bounds[1:] - bounds[:-1]
+    starts, lens = bounds[..., :-1], bounds[..., 1:] - bounds[..., :-1]
     return pairs, starts.contiguous(), lens.contiguous(), (
         n_pairs, pair_overflow
     )
@@ -986,6 +1027,39 @@ def trace_pairs_pallas(tile_dirs, pairs, starts, lens, cfg: RenderConfig):
     )
 
 
+def _block_planes(scene, cfg: RenderConfig, frame):
+    """[4, 3] frustum planes of the block cfg describes at `frame` =
+    (frame_w, frame_h, x_off, y_off): one "tile" = this whole block."""
+    from sphereflake_tpu_torch.camera import tile_frustum_planes
+
+    frame_w, frame_h, x_off, y_off = frame
+    return tile_frustum_planes(
+        scene.camera, frame_w, frame_h,
+        cfg.padded_height, cfg.padded_width,
+        x_off=x_off, y_off=y_off,
+        block_h=cfg.padded_height, block_w=cfg.padded_width,
+    )[0]
+
+
+def _corner_hull(corner_rays, cfg: RenderConfig, frame_w, frame_h, x_off, y):
+    """The block's four corner-ray directions [4, 3] (padded extent
+    included: the padded rows/cols extrapolate the corner interpolation,
+    so the hull must cover them for the behind-camera cull to be exact).
+    `y` is the block's y offset as a 0-d f32 tensor, or [B, 1] for B
+    blocks ([B, 4, 3])."""
+    origin, tl, tr, bl = corner_rays
+    ex, ey = tr - tl, bl - tl
+    f32 = lambda x: origin.new_tensor(float(x))
+    u0 = f32(x_off) / f32(frame_w)
+    u1 = (f32(x_off) + cfg.padded_width) / f32(frame_w)
+    v0 = y / f32(frame_h)
+    v1 = (y + cfg.padded_height) / f32(frame_h)
+    base = tl - origin
+    return torch.stack(
+        [base + u * ex + v * ey for u in (u0, u1) for v in (v0, v1)], dim=-2
+    )
+
+
 def frame_nodes(scene, cfg: RenderConfig, root, templates, frame=None):
     """The replicated front of the bin: the global expansion culled by
     this block's frustum, the corner-ray basis and the block's corner
@@ -995,35 +1069,17 @@ def frame_nodes(scene, cfg: RenderConfig, root, templates, frame=None):
 
     `frame` = (frame_w, frame_h, x_off, y_off) when cfg describes one
     block (band) of a larger frame (see `bin_nodes`)."""
-    from sphereflake_tpu_torch.camera import corner_rays, tile_frustum_planes
+    from sphereflake_tpu_torch.camera import corner_rays
 
-    frame_w, frame_h, x_off, y_off = (
-        frame if frame is not None else (cfg.width, cfg.height, 0.0, 0.0)
-    )
-    block_planes = tile_frustum_planes(
-        scene.camera, frame_w, frame_h,
-        cfg.padded_height, cfg.padded_width,
-        x_off=x_off, y_off=y_off,
-        block_h=cfg.padded_height, block_w=cfg.padded_width,
-    )[0]  # one "tile" = this whole block
+    frame = frame if frame is not None else (cfg.width, cfg.height, 0.0, 0.0)
+    frame_w, frame_h, x_off, y_off = frame
     nodes, exp_overflow = expand_global(
-        root, templates, scene.fractal, cfg, block_planes
+        root, templates, scene.fractal, cfg, _block_planes(scene, cfg, frame)
     )
     minv = corner_basis(scene.camera, frame_w, frame_h)
-    # This block's corner-ray directions (padded extent included: the
-    # padded rows/cols extrapolate the corner interpolation, so the
-    # hull must cover them for the behind-camera cull to be exact).
-    origin, tl, tr, bl = corner_rays(scene.camera, frame_w / frame_h)
-    ex, ey = tr - tl, bl - tl
-    f32 = lambda x: origin.new_tensor(float(x))
-    u0 = f32(x_off) / f32(frame_w)
-    u1 = (f32(x_off) + cfg.padded_width) / f32(frame_w)
-    v0 = f32(y_off) / f32(frame_h)
-    v1 = (f32(y_off) + cfg.padded_height) / f32(frame_h)
-    base = tl - origin
-    corners = torch.stack(
-        [base + u * ex + v * ey for u in (u0, u1) for v in (v0, v1)]
-    )
+    rays = corner_rays(scene.camera, frame_w / frame_h)
+    corners = _corner_hull(rays, cfg, frame_w, frame_h, x_off,
+                           rays[0].new_tensor(float(y_off)))
     return nodes, exp_overflow, minv, corners
 
 
@@ -1062,22 +1118,80 @@ def camera_vector(scene, cfg: RenderConfig, frame=None):
     return torch.cat([tl, ex, ey, origin, tail])
 
 
-def _gbuffer_primal(cfg: RenderConfig, frame_w, frame_h, scene, offs):
-    """One block's forward: expansion + binning in plain torch, then ONE
-    fused kernel call (raygen + binned ray tests + G-buffer shading)."""
+def band_fronts(scene, cfg: RenderConfig, frame_w, frame_h, x_off, y_offs):
+    """The fronts of `_gbuffer_primal` for the bands of one block at
+    pixel rows `y_offs` (`render.band_layout`), made for all of them at
+    once: expansion, binning and the camera packs, each op one launch
+    for every band (`expand_global` over [B, 4, 3] planes, `bin_nodes`
+    over its [B, N] nodes). The small uploads that wait for the card (a
+    `new_tensor` synchronizes its stream) all come before the block's
+    work is queued. Band b's front (pairs, starts, lens, (n_pairs,
+    overflow), camera pack) equals what its own `binned_pairs` and
+    `camera_vector` give, bit for bit. Every band's pair table is held
+    at once."""
+    from sphereflake_tpu_torch.camera import corner_rays
     from sphereflake_tpu_torch.models.sphereflake import (
         child_templates,
         root_frame,
     )
 
-    root = root_frame(scene.camera.position)
-    templates = child_templates(scene.fractal)
-    frame = (frame_w, frame_h, offs[0], offs[1])
-    pairs, starts, lens, (_n, povf) = binned_pairs(
-        scene, cfg, root, templates, frame=frame
-    )
+    nb = len(y_offs)
+    with spans.span("gbuffer.expand"):
+        root = root_frame(scene.camera.position)
+        templates = child_templates(scene.fractal)
+        planes = torch.stack([
+            _block_planes(scene, cfg, (frame_w, frame_h, x_off, y))
+            for y in y_offs
+        ])
+        nodes, exp_overflow = expand_global(
+            root, templates, scene.fractal, cfg, planes
+        )
+        minv = corner_basis(scene.camera, frame_w, frame_h)
+        rays = corner_rays(scene.camera, frame_w / frame_h)
+        ys = rays[0].new_tensor([float(y) for y in y_offs])[:, None]
+        corners = _corner_hull(rays, cfg, frame_w, frame_h, x_off, ys)
+    with spans.span("gbuffer.bin"):
+        pairs, starts, lens, (n_pairs, pair_ovf) = bin_nodes(
+            nodes, minv, cfg, frame=(frame_w, frame_h, x_off, ys),
+            corners=corners,
+        )
     with spans.span("gbuffer.k1"):
-        cam = camera_vector(scene, cfg, frame=frame)
+        origin, tl, tr, bl = rays
+        head = torch.cat([tl, tr - tl, bl - tl, origin])
+        tails = origin.new_tensor([
+            [float(x_off), float(y), float(frame_w), float(frame_h)]
+            for y in y_offs
+        ])
+        cams = torch.cat([head.expand(nb, head.shape[0]), tails], dim=1)
+    overflow = pair_ovf + exp_overflow
+    return [(pairs[b], starts[b], lens[b], (n_pairs[b], overflow[b]), cams[b])
+            for b in range(nb)]
+
+
+def _gbuffer_primal(cfg: RenderConfig, frame_w, frame_h, scene, offs,
+                    front=None):
+    """One block's forward: expansion + binning in plain torch, then ONE
+    fused kernel call (raygen + binned ray tests + G-buffer shading).
+    `front` = the block's entry of `band_fronts`, made beforehand with
+    its sibling bands' (then only the kernel call is left)."""
+    from sphereflake_tpu_torch.models.sphereflake import (
+        child_templates,
+        root_frame,
+    )
+
+    frame = (frame_w, frame_h, offs[0], offs[1])
+    if front is None:
+        root = root_frame(scene.camera.position)
+        templates = child_templates(scene.fractal)
+        pairs, starts, lens, (_n, povf) = binned_pairs(
+            scene, cfg, root, templates, frame=frame
+        )
+        cam = None
+    else:
+        pairs, starts, lens, (_n, povf), cam = front
+    with spans.span("gbuffer.k1"):
+        if cam is None:
+            cam = camera_vector(scene, cfg, frame=frame)
         out, m = trace_pairs_fused_soa(cam, pairs, starts, lens, cfg)
     deep = cfg.max_depth >= 7
     flat = lambda r: out[:, r].reshape(-1)

@@ -23,7 +23,13 @@ takes them on the card). They are the only place where blocks meet:
   first local cell), then across processes;
 - `all_gather`: every cell's tensor, in row-major cell order, on the
   home device (`jax.lax.all_gather(..., tiled=True)` is `torch.cat` of
-  that list; `tile_blocks` assembles 2D image blocks).
+  that list; `tile_blocks` assembles 2D image blocks);
+- `broadcast`: a home tensor (or scene) on every local cell's device.
+
+Each adds the bytes that reach one cell from another to the counter
+`mesh.peer_bytes` of the open stage-span unit (`spans.py`). A cell is
+counted as a cell whatever its device, so a mesh of `[cpu] * 4` counts
+what four cards would move.
 """
 
 from __future__ import annotations
@@ -32,6 +38,8 @@ import math
 
 import numpy as np
 import torch
+
+from sphereflake_tpu_torch import spans
 
 
 class Mesh:
@@ -139,8 +147,22 @@ def _stage(x: torch.Tensor):
     return x.to(torch.uint8) if x.dtype == torch.bool else x
 
 
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
+def _count_peer(mesh: Mesh, local) -> None:
+    """Count what reaches the home cell from the other cells: this
+    process's other cells' tensors, and one tensor of `local[0]`'s size
+    for each cell of another process."""
+    spans.count("mesh.peer_bytes",
+                sum(_nbytes(x) for x in local[1:])
+                + (mesh.size - len(local)) * _nbytes(local[0]))
+
+
 def _reduce(mesh: Mesh, values, op: str) -> torch.Tensor:
     home = mesh.home
+    _count_peer(mesh, values)
     stacked = torch.stack([v.to(home) for v in values])
     out = {"sum": lambda x: x.sum(0, dtype=x.dtype),
            "max": lambda x: x.amax(0), "min": lambda x: x.amin(0)}[op](stacked)
@@ -176,6 +198,7 @@ def all_gather(mesh: Mesh, local) -> list:
     across processes it carries values only, and refuses tensors that
     require grad."""
     home = mesh.home
+    _count_peer(mesh, local)
     mine = [x.to(home) for x in local]
     if not mesh.multi_process:
         return mine
@@ -197,6 +220,17 @@ def all_gather(mesh: Mesh, local) -> list:
     per_rank = [iter(p.to(home, dtype)) for p in parts]
     return [next(per_rank[int(mesh.ranks[idx])])
             for idx in np.ndindex(*mesh.shape)]
+
+
+def broadcast(mesh: Mesh, x) -> list:
+    """`x` (a tensor, or a `SceneParams`, on the home device) on each of
+    this process's cells' devices, in `local_cells()` order; every copy
+    but the home cell's is counted."""
+    cells = mesh.local_cells()
+    leaves = [x] if isinstance(x, torch.Tensor) else x.leaves()
+    spans.count("mesh.peer_bytes",
+                (len(cells) - 1) * sum(_nbytes(v) for v in leaves))
+    return [x.to(dev) for _, dev in cells]
 
 
 def tile_blocks(mesh: Mesh, cells) -> torch.Tensor:

@@ -18,6 +18,13 @@ Binned frames that the shared bin takes go through it
 (`parallel.shared_bin`); the rest render per block: K1 once per block
 and band, or, on the per-tile algorithms, raygen at global pixel
 coordinates and the per-tile traversal (K4 on `pallas`) per block.
+
+Stage spans of a frame (`spans.py`, in the open unit, `frame` under
+`animate(mesh=...)`): `mesh.blocks` (the per-block G-buffers, the
+`gbuffer.*` spans of their bands nested in it; counter `mesh.cells`),
+`mesh.gather` (the planes assembled on the home device and the metrics
+reduced) and `mesh.post` (the post with its gathers); the collectives
+count `mesh.peer_bytes` (`parallel.mesh`).
 """
 
 from __future__ import annotations
@@ -26,10 +33,12 @@ import dataclasses
 
 import torch
 
+from sphereflake_tpu_torch import spans
 from sphereflake_tpu_torch.config import RenderConfig, SceneParams
 from sphereflake_tpu_torch.parallel.mesh import (
     Mesh,
     all_gather,
+    broadcast,
     pmax,
     psum,
     tile_blocks,
@@ -57,6 +66,31 @@ def _block_cfg(cfg: RenderConfig, mesh: Mesh) -> RenderConfig:
     return dataclasses.replace(cfg, height=bh, width=bw, band_tile_rows=btr)
 
 
+def _fronts_primal(scene: SceneParams, cfg: RenderConfig, frame):
+    """The forward of each band of the block cfg describes at `frame`,
+    with every band's expansion and binning made first in one batched
+    call (`ops.binned.band_fronts`), and no upload that waits for the
+    card between the bands: the host queues a whole block and moves on
+    to the next cell's card while this one works. A 16384^2 frame on a
+    2x2 mesh of H100s ran 35,016 device operations instead of 269,104.
+    None for an unbanded block."""
+    from sphereflake_tpu_torch.ops.binned import _gbuffer_primal, band_fronts
+    from sphereflake_tpu_torch.render import band_layout
+
+    band_cfg, offsets = band_layout(cfg, frame)
+    if len(offsets) < 2:
+        return None
+    with torch.no_grad():
+        fronts = dict(zip(offsets, band_fronts(
+            scene, band_cfg, frame[0], frame[1], frame[2], offsets)))
+
+    def primal(c, frame_w, frame_h, s, offs):
+        return _gbuffer_primal(c, frame_w, frame_h, s, offs,
+                               front=fronts.pop(offs[1]))
+
+    return primal
+
+
 def _render_block(scene: SceneParams, cfg: RenderConfig, bcfg: RenderConfig,
                   iy: int, ix: int):
     """Render cell (iy, ix)'s image block on the scene's device, binned
@@ -82,9 +116,9 @@ def _render_block(scene: SceneParams, cfg: RenderConfig, bcfg: RenderConfig,
     y0 = float(iy * bcfg.height)
     x0 = float(ix * bcfg.width)
     if bcfg.algorithm == "binned":
-        rows, metrics = _binned_rows(
-            scene, bcfg, (cfg.width, cfg.height, x0, y0)
-        )
+        frame = (cfg.width, cfg.height, x0, y0)
+        rows, metrics = _binned_rows(scene, bcfg, frame,
+                                     _fronts_primal(scene, bcfg, frame))
         imgs = _untile_rows(rows, bcfg)
         return (
             torch.stack(imgs[1:4], dim=-1),
@@ -142,17 +176,21 @@ def render_gbuffer_sharded(scene: SceneParams, cfg: RenderConfig,
     bcfg = _block_cfg(cfg, mesh)
     scene = scene.to(mesh.home)
     with _grad_mode(scene):
-        blocks = [
-            _render_block(scene.to(dev), cfg, bcfg, iy, ix)
-            for (iy, ix), dev in mesh.local_cells()
-        ]
-        planes = [
-            tile_blocks(mesh, all_gather(mesh, [b[k] for b in blocks]))
-            for k in range(4)
-        ]
-        depth_r = pmax(mesh, [b[4][0] for b in blocks])
-        nodes_n = psum(mesh, [b[4][1] for b in blocks])
-        overflow = psum(mesh, [b[4][2] for b in blocks])
+        with spans.span("mesh.blocks"):
+            blocks = [
+                _render_block(s, cfg, bcfg, iy, ix)
+                for ((iy, ix), _), s in zip(mesh.local_cells(),
+                                            broadcast(mesh, scene))
+            ]
+            spans.count("mesh.cells", len(blocks))
+        with spans.span("mesh.gather"):
+            planes = [
+                tile_blocks(mesh, all_gather(mesh, [b[k] for b in blocks]))
+                for k in range(4)
+            ]
+            depth_r = pmax(mesh, [b[4][0] for b in blocks])
+            nodes_n = psum(mesh, [b[4][1] for b in blocks])
+            overflow = psum(mesh, [b[4][2] for b in blocks])
     h, w = cfg.height, cfg.width
     pos, nrm, min_t, hit = (p[:h, :w] for p in planes)
     return GBuffer(
@@ -178,13 +216,19 @@ def render_frame_sharded(scene: SceneParams, cfg: RenderConfig, mesh: Mesh):
 
     Returns (image [H, W, 3], GBuffer) like `render.render_frame`, on
     the home device."""
+    scene = scene.to(mesh.home)
+    gb = render_gbuffer_sharded(scene, cfg, mesh)
+    with spans.span("mesh.post"):
+        return _post_sharded(gb, scene, cfg, mesh), gb
+
+
+def _post_sharded(gb, scene: SceneParams, cfg: RenderConfig, mesh: Mesh):
+    """The image of `render_frame_sharded` from the gathered G-buffer."""
     from sphereflake_tpu_torch.ops import post as post_ops
     from sphereflake_tpu_torch.ops.noise import ssao_noise_texture
     from sphereflake_tpu_torch.render import _grad_mode
 
     home = mesh.home
-    scene = scene.to(home)
-    gb = render_gbuffer_sharded(scene, cfg, mesh)
     noise = torch.from_numpy(ssao_noise_texture(cfg.noise_size)).to(home)
     bcfg = _block_cfg(cfg, mesh)
     h, w = cfg.height, cfg.width
@@ -195,16 +239,16 @@ def render_frame_sharded(scene: SceneParams, cfg: RenderConfig, mesh: Mesh):
         closest = gb.metrics.closest_distance
         if (sh % my or sw % mx or h % my or w % mx
                 or bcfg.height % ds or bcfg.width % ds):
-            image = post_ops.postprocess(
+            return post_ops.postprocess(
                 gb.position, gb.normal, closest, scene, cfg, noise
             )
-            return image, gb
         sbh, sbw = sh // my, sw // mx  # SSAO-target blocks
         bbh, bbw = h // my, w // mx  # full-resolution post blocks
-        cells = [
-            (idx, dev, scene.to(dev), gb.position.to(dev), gb.normal.to(dev))
-            for idx, dev in mesh.local_cells()
-        ]
+        cells = list(zip(
+            [idx for idx, _ in mesh.local_cells()],
+            *(broadcast(mesh, x) for x in (scene, gb.position, gb.normal,
+                                           noise, closest)),
+        ))
 
         def frag(idx, dev, bh, bw):
             return post_ops.block_fragcoord(bh, bw, idx[0] * bh,
@@ -215,22 +259,22 @@ def render_frame_sharded(scene: SceneParams, cfg: RenderConfig, mesh: Mesh):
 
         ao = gathered([
             post_ops.ssao_pass(
-                pos, nrm, noise.to(dev), s.ssao,
-                s.ssao.radius_multiplier * closest.to(dev), sh, sw,
-                frag=frag(idx, dev, sbh, sbw),
+                pos, nrm, nz, s.ssao, s.ssao.radius_multiplier * near, sh, sw,
+                frag=frag(idx, pos.device, sbh, sbw),
             )
-            for idx, dev, s, pos, nrm in cells
+            for idx, s, pos, nrm, nz, near in cells
         ])
         aoh = gathered([
-            post_ops.blur_pass(ao.to(dev), pos, nrm, s.ssao, (1.0, 0.0),
-                               h, w, frag=frag(idx, dev, bbh, bbw))
-            for idx, dev, s, pos, nrm in cells
+            post_ops.blur_pass(a, pos, nrm, s.ssao, (1.0, 0.0), h, w,
+                               frag=frag(idx, pos.device, bbh, bbw))
+            for (idx, s, pos, nrm, _nz, _near), a in zip(cells,
+                                                         broadcast(mesh, ao))
         ])
         blocks = []
-        for idx, dev, s, pos, nrm in cells:
-            aov = post_ops.blur_pass(aoh.to(dev), pos, nrm, s.ssao,
-                                     (0.0, 1.0), h, w,
-                                     frag=frag(idx, dev, bbh, bbw))
+        for (idx, s, pos, nrm, _nz, _near), a in zip(cells,
+                                                     broadcast(mesh, aoh)):
+            aov = post_ops.blur_pass(a, pos, nrm, s.ssao, (0.0, 1.0), h, w,
+                                     frag=frag(idx, pos.device, bbh, bbw))
             # The composite samples every plane at its own pixel, so it
             # runs on block-local data.
             y0, x0 = idx[0] * bbh, idx[1] * bbw
@@ -239,8 +283,7 @@ def render_frame_sharded(scene: SceneParams, cfg: RenderConfig, mesh: Mesh):
             sky = torch.sum(pos_loc * pos_loc, dim=-1) == 0.0
             blocks.append(torch.where(sky[..., None], torch.zeros_like(img),
                                       img))
-        image = gathered(blocks)
-    return image, gb
+        return gathered(blocks)
 
 
 def fit_step_sharded(scene: SceneParams, target_position, target_normal,

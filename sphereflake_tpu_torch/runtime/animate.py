@@ -79,6 +79,24 @@ def _orbit_scene(scene, cam0, radius, i, n_frames):
     return dataclasses.replace(scene, camera=cam)
 
 
+def _image_to_host(image: torch.Tensor):
+    """`image.cpu().numpy()` for a mesh frame's image on a card (16384^2
+    float32 is 3.2 GB), into page-locked memory from torch's caching host
+    allocator: the card copies at the link's speed (3.2 GB in 0.06 s on
+    an H100 host, against 1.5–1.9 s into new pageable memory, where the
+    CUDA runtime's staging copy and the first touch of each page run on one
+    thread), and the memory of a frame the caller has dropped serves a
+    later frame. Pageable memory where none can be locked."""
+    if image.device.type != "cuda":
+        return image.cpu().numpy()
+    try:
+        out = torch.empty(image.shape, dtype=image.dtype, pin_memory=True)
+    except RuntimeError:
+        return image.cpu().numpy()
+    out.copy_(image)
+    return out.numpy()
+
+
 def animate_frames_dp(
     scene: SceneParams,
     cfg: RenderConfig,
@@ -265,6 +283,8 @@ def animate(
 
         def render_gbuffer(s, c):
             return render_gbuffer_sharded(s, c, mesh)
+
+        to_host = _image_to_host
     else:
         dev = resolve_device(device)
 
@@ -273,6 +293,9 @@ def animate(
 
         def render_gbuffer(s, c):
             return render.render_gbuffer(s, c, device=dev)
+
+        def to_host(image):
+            return image.cpu().numpy()
     scene = scene.to(dev)
     cam0 = scene.camera
     radius = float(torch.linalg.vector_norm(cam0.position))
@@ -291,7 +314,7 @@ def animate(
                 if composite:
                     image, gb = render_frame(scene, cfg)
                     with spans.span("animate.to_host"):
-                        image = image.cpu().numpy()
+                        image = to_host(image)
                 else:
                     gb = render_gbuffer(scene, cfg)
                     image = shade_normals(gb.normal, gb.hit)
