@@ -18,6 +18,15 @@ holds every hand-written kernel against its plain torch version on the
 card. Phases, each printing one or more JSON lines:
 
 1. device: card name and power limit, versions, kernel build seconds;
+   then the post chain's kernels: SSAO, the horizontal blur and the
+   vertical blur fused with the composite, each against its plain
+   version on the same inputs, bit for bit, on the G-buffers of a 1080p
+   depth-6 and a 4K depth-8 frame, on one 8192^2 block of a 16384^2
+   depth-8 frame at (8192, 8192) and at `ssao_downscale` 2, with each
+   pass's ms beside its byte bound and its plain version's ms; a
+   1080p `render_frame` that launches the three and counts them; and
+   the same frame with the SSAO uniforms requiring grad, which takes the
+   plain passes (no launch) and gives the kernels' image bit for bit;
 2. kernels vs plain: the pairs kernel in its three launch modes at the
    main paths' shapes — full grid (the 1080p depth-6 pair table), tile
    subset (`shade_only` and coded, on the trimmed table with the Sobol
@@ -610,9 +619,13 @@ def queue_demand(torch, ptrav, dirs, pool, metrics, level_tab, cfg):
     warp_pass = torch.zeros((), dtype=torch.int64, device=dirs.device)
     for q in range(int(qlen.max())):
         cx, cy, cz, cc, code = (q_rows[:, r, q, None] for r in range(5))
+        queued = (q < qlen)[:, None]
+        # Past a bundle's queue the pool holds whatever the allocator left
+        # there: its code must not index the level table.
+        code = torch.where(queued, code, torch.zeros_like(code))
         r2 = level_tab[1][ptrav._code_level(code)]
         tca = d[:, 0] * cx + d[:, 1] * cy + d[:, 2] * cz
-        reach = (q < qlen)[:, None] & (cc - tca * tca <= r2)
+        reach = queued & (cc - tca * tca <= r2)
         warp_pass += reach.reshape(n, 4, 8, 2, 16).any(4).any(2).sum()
     return dict(warp_pass_share=int(warp_pass) / (8 * int(qlen.sum())))
 
@@ -1373,6 +1386,7 @@ def animate_phase(torch, dev, scene, cfg, cli_main, reset_counts,
     import numpy as np
 
     from sphereflake_tpu_torch import render
+    from sphereflake_tpu_torch.ops.post import post_kernel
     from sphereflake_tpu_torch.runtime.animate import animate
 
     t_phase = time.perf_counter()
@@ -1403,6 +1417,7 @@ def animate_phase(torch, dev, scene, cfg, cli_main, reset_counts,
                          for p in pngs]
                 runs[mode] = dict(
                     rc=rc, renders=len(renders), launches=counts,
+                    post_launches=post_kernel.launches,
                     png_bytes=[len(b) for b in blobs],
                     distinct_pngs=len({hashlib.sha256(b).hexdigest()
                                        for b in blobs}),
@@ -1423,6 +1438,7 @@ def animate_phase(torch, dev, scene, cfg, cli_main, reset_counts,
             positions = [sc.camera.position.cpu().numpy() for _, sc in frames]
             runs["approach_all_sky"] = dict(
                 renders=len(renders), launches=sky_counts,
+                post_launches=post_kernel.launches,
                 positions=[p.tolist() for p in positions],
                 held=all(bool(np.array_equal(p, start)) for p in positions),
                 finite=all(bool(np.isfinite(p).all()) for p in positions),
@@ -1454,13 +1470,20 @@ def animate_phase(torch, dev, scene, cfg, cli_main, reset_counts,
     if not (sky_run["held"] and sky_run["finite"]) or sky_run[
             "launches"] != [sky_run["renders"], 0, 0, 0]:
         fail(f"the all-sky approach moved the camera: {sky_run}")
+    for name, run in runs.items():
+        if run["post_launches"] != 3 * run["renders"]:
+            fail(f"{name}: post_kernel launched {run['post_launches']} "
+                 f"times for {run['renders']} renders")
     return sum(r["launches"][0] for r in runs.values())
 
 
 def profile_phase(cli_main, reset_counts, read_counts, size_args):
     """`--frames 2 --profile DIR`: the directory holds a Chrome trace
     whose device events name the pair kernel's walk. Returns the pair
-    kernel's launches (the warm-up frame and the two timed ones)."""
+    kernel's launches (the warm-up frame and the two timed ones; the
+    post kernel's, three a frame, are gated)."""
+    from sphereflake_tpu_torch.ops.post import post_kernel
+
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         prof_dir = os.path.join(tmp, "profile")
@@ -1468,6 +1491,7 @@ def profile_phase(cli_main, reset_counts, read_counts, size_args):
         rc = cli_main(size_args + ["--frames", "2", "--profile", prof_dir,
                                    "-o", os.path.join(tmp, "frame.png")])
         counts = read_counts()
+        post_launches = post_kernel.launches
         files = sorted(os.listdir(prof_dir)) if os.path.isdir(prof_dir) else []
         events = []
         if "trace.json" in files:
@@ -1482,10 +1506,12 @@ def profile_phase(cli_main, reset_counts, read_counts, size_args):
         rc=rc, files=files, trace_bytes=trace_bytes, events=len(events),
         kernel_events=len(kernels), walk_items_kernel_events=len(walks),
         walk_items_kernel_us=sum(float(e.get("dur", 0)) for e in walks),
-        launches=counts, seconds=time.perf_counter() - t_phase,
+        launches=counts, post_launches=post_launches,
+        seconds=time.perf_counter() - t_phase,
     )
     emit("profile_cli", **out)
-    if rc != 0 or not files or not walks or counts != [3, 0, 0, 0]:
+    if (rc != 0 or not files or not walks or counts != [3, 0, 0, 0]
+            or post_launches != 9):
         fail(f"--profile: {out}")
     return counts[0]
 
@@ -1530,8 +1556,11 @@ def sharded_phase(torch, dev, scene, cfg, card, reset_counts, read_counts):
     card — the shared bin (K2 coded, one launch a block; bit for bit
     `render_gbuffer`), the per-block path (K1 a block) and the pallas
     mesh (K4 a block) against their single-device frames, the sharded
-    `render_frame` against `render_frame`, and each sharded frame's time
-    beside the single-device one. Returns the launches [K1, K2, K3, K4]."""
+    `render_frame` against `render_frame` (its post three kernel passes a
+    cell: `post.kernel` 12), and each sharded frame's time beside the
+    single-device one. Returns the launches [K1, K2, K3, K4]."""
+    from sphereflake_tpu_torch import spans
+    from sphereflake_tpu_torch.ops.post import post_kernel
     from sphereflake_tpu_torch.parallel import (
         make_mesh,
         render_frame_sharded,
@@ -1599,8 +1628,12 @@ def sharded_phase(torch, dev, scene, cfg, card, reset_counts, read_counts):
                                          getattr(p_aos, k)))
                      for k in ("min_t", "position", "normal", "hit")}
         img_1, _ = render_frame(scene, cfg, device=dev)
-        (img_s, _), frame_counts = counted(
-            lambda: render_frame_sharded(scene, cfg, mesh))
+        with spans.unit("sharded_frame_check"):
+            (img_s, _), frame_counts = counted(
+                lambda: render_frame_sharded(scene, cfg, mesh))
+        post_launches = post_kernel.launches
+        post_passes = spans.records("sharded_frame_check")[-1]["counts"].get(
+            "post.kernel")
         frame_err = float((img_s - img_1).abs().max())
         frame_bits = bool(torch.equal(img_s, img_1))
         times = dict(
@@ -1635,7 +1668,8 @@ def sharded_phase(torch, dev, scene, cfg, card, reset_counts, read_counts):
                     equals_aos_frame=aos_equal,
                     **versus(p_mesh, p_single)),
         render_frame=dict(launches=frame_counts, max_abs_err=frame_err,
-                          bits_equal=frame_bits,
+                          bits_equal=frame_bits, post_kernel=post_passes,
+                          post_launches=post_launches,
                           limit=dict(max_abs_err=COMPOSITE_ERR_MAX)),
         limits=dict(per_block=dict(hit_mismatch_max=SHARD_HIT_MISMATCH_MAX,
                                    min_t_close_min=SHARD_T_CLOSE_MIN),
@@ -1663,7 +1697,8 @@ def sharded_phase(torch, dev, scene, cfg, card, reset_counts, read_counts):
             or pallas["min_t_within_leaf_radius"] < STRICT_BINNED_T_LEAF_MIN):
         fail(f"the pallas mesh disagrees with the single-device pallas "
              f"frame: {pallas}")
-    if frame_counts != [0, n, 0, 0] or frame_err > COMPOSITE_ERR_MAX:
+    if (frame_counts != [0, n, 0, 0] or frame_err > COMPOSITE_ERR_MAX
+            or post_passes != 3 * n or post_launches != 3 * n):
         fail(f"render_frame_sharded disagrees with render_frame: {out}")
     return total
 
@@ -1761,6 +1796,7 @@ def frames_dp_phase(torch, dev, scene, cfg, card, reset_counts, read_counts):
     """`frames_dp`: four orbit cameras rendered by `render_frames_dp` over
     a 1D mesh of the card, equal to four sequential `render_frame` calls
     bit for bit; one K1 launch a frame. Returns the launches."""
+    from sphereflake_tpu_torch.ops.post import post_kernel
     from sphereflake_tpu_torch.parallel import (
         make_frame_mesh,
         render_frames_dp,
@@ -1777,20 +1813,22 @@ def frames_dp_phase(torch, dev, scene, cfg, card, reset_counts, read_counts):
         reset_counts()
         images, ovf = render_frames_dp(scenes, cfg, mesh)
         counts = read_counts()
+        post_launches = post_kernel.launches
         seq = [render_frame(s, cfg, device=dev)[0] for s in scenes]
         equal = [bool(torch.equal(images[i], seq[i]))
                  for i in range(DP_FRAMES)]
         dp_ms = event_ms(torch, lambda: render_frames_dp(scenes, cfg, mesh), 2)
         seq_ms = event_ms(torch, lambda: [
             render_frame(s, cfg, device=dev) for s in scenes], 2)
-    out = dict(frames=DP_FRAMES, launches=counts, overflow=ovf.tolist(),
+    out = dict(frames=DP_FRAMES, launches=counts,
+               post_launches=post_launches, overflow=ovf.tolist(),
                equal_to_sequential=equal,
                distinct=bool(float((images[0] - images[1]).abs().max()) > 0),
                dp_ms=dp_ms, sequential_ms=seq_ms, card=card,
                seconds=time.perf_counter() - t_phase)
     emit("frames_dp", **out)
     if (not all(equal) or any(ovf.tolist()) or counts != [DP_FRAMES, 0, 0, 0]
-            or not out["distinct"]):
+            or not out["distinct"] or post_launches != 3 * DP_FRAMES):
         fail(f"render_frames_dp is not the sequential frames: {out}")
     return counts
 
@@ -2325,6 +2363,154 @@ def scaling_phase(torch, dev, card, reset_counts, read_counts):
     return counts
 
 
+# The post chain's kernels (`csrc/post_kernel.cu`), each pass against its
+# plain version on the same inputs, bit for bit: the frames the benchmark's
+# one-card cells render, one 8192^2 block of the 16384^2 frame at the
+# block origin of the four-card cell's last cell, and the SSAO target at
+# half size. Times: the kernel queued behind the spin kernel over
+# POST_TIMED_REPS launches, the plain version over POST_PLAIN_REPS calls.
+POST_CASES = (
+    # (variant, width, height, depth, ssao_downscale, block (y0, x0, bh, bw))
+    ("1920x1080", 1920, 1080, 6, 1, None),
+    ("3840x2160", 3840, 2160, 8, 1, None),
+    ("16384^2 block at (8192, 8192)", 16384, 16384, 8, 1,
+     (8192, 8192, 8192, 8192)),
+    ("1920x1080 ssao_downscale 2", 1920, 1080, 6, 2, None),
+)
+POST_TIMED_REPS, POST_PLAIN_REPS = 20, 2
+# Bytes a pixel of each pass's output, each input read once and the output
+# written once: SSAO reads position and normal (24) and writes AO (4); the
+# blur reads them and the source plane (4) and writes AO (4); the blur with
+# the composite writes RGB (12) instead.
+POST_BYTES = {"ssao": 28, "blur": 32, "blur_composite": 40}
+
+
+def post_phase(torch, dev, card):
+    """`kernel_vs_plain` lines of `post_kernel`, one per case and pass
+    (bits equal, or the script fails), with each pass's ms beside its
+    byte bound and its plain version's ms; then the `post_path` line:
+    a 1080p `render_frame` launches the post kernel three times and
+    counts `post.kernel` 3 in its unit; then the `post_grad_path` line:
+    the same frame with the six SSAO uniforms requiring grad launches
+    none, its image equals the kernels' bit for bit, and the uniforms
+    the shaders weigh get finite, nonzero gradients. Returns the 1080p
+    frame's three passes (kernel ms, plain ms, bound ms), summed, and
+    the largest `max_abs_err` of the `kernel_vs_plain` lines."""
+    from sphereflake_tpu_torch import spans
+    from sphereflake_tpu_torch.config import RenderConfig, default_scene
+    from sphereflake_tpu_torch.ops import post
+    from sphereflake_tpu_torch.ops.noise import ssao_noise_texture
+    from sphereflake_tpu_torch.render import render_frame, render_gbuffer
+
+    scene = default_scene(dev)
+    frame_sums, errs = None, []
+    for variant, w, h, depth, ds, block in POST_CASES:
+        cfg = RenderConfig(width=w, height=h, max_depth=depth, tile_h=32,
+                           tile_w=32, algorithm="binned", ssao_downscale=ds)
+        sh, sw = h // ds, w // ds
+        sblock = None if block is None else tuple(b // ds for b in block)
+        with torch.no_grad():
+            gb = render_gbuffer(scene, cfg, device=dev)
+            pos, nrm = gb.position, gb.normal
+            noise = torch.from_numpy(ssao_noise_texture(cfg.noise_size)).to(dev)
+            radius = (scene.ssao.radius_multiplier, gb.metrics.closest_distance)
+            p = scene.ssao
+            cam = scene.camera.position
+            # Each pass's inputs: the kernel's output of the pass before,
+            # over the whole target (a block's blur reads across its edges).
+            ao = post.ssao_pass(pos, nrm, noise, p, radius, sh, sw)
+            aoh = post.blur_pass(ao, pos, nrm, p, (1.0, 0.0), h, w)
+            passes = (
+                ("ssao", sblock, sh, sw,
+                 lambda f, b: f(pos, nrm, noise, p, radius, sh, sw, b),
+                 post.ssao_pass, post._ssao_plain),
+                ("blur", block, h, w,
+                 lambda f, b: f(ao, pos, nrm, p, (1.0, 0.0), h, w, b),
+                 post.blur_pass, post._blur_plain),
+                ("blur_composite", block, h, w,
+                 lambda f, b: f(aoh, pos, nrm, p, cam, h, w, b),
+                 post.blur_composite_pass, post._blur_composite_plain),
+            )
+            sums = [0.0, 0.0, 0.0]
+            for name, blk, th, tw, call, kernel_fn, plain_fn in passes:
+                before = post.post_kernel.launches
+                got = call(kernel_fn, blk)
+                torch.cuda.synchronize()
+                launches = post.post_kernel.launches - before
+                want = call(plain_fn, blk)
+                torch.cuda.synchronize()
+                equal = bits_equal(torch, got, want)
+                err = float((got - want).abs().max())
+                errs.append(err)
+                ms = event_ms(torch, lambda: call(kernel_fn, blk),
+                              POST_TIMED_REPS, queued=True)
+                plain_ms = event_ms(torch, lambda: call(plain_fn, blk),
+                                    POST_PLAIN_REPS)
+                px = got.shape[0] * got.shape[1]
+                bound_ms = bound(px * POST_BYTES[name], 0)[0]
+                sums = [a + b for a, b in zip(sums, (ms, plain_ms, bound_ms))]
+                emit("kernel_vs_plain", kernel="post_kernel", variant=variant,
+                     **{"pass": name}, shape=list(got.shape), target=[th, tw],
+                     block=blk, gbuffer=[h, w], bits_equal=equal,
+                     max_abs_err=err, launches=launches, ms=ms,
+                     plain_ms=plain_ms, bound_ms=bound_ms,
+                     share=bound_ms / ms, card=card)
+                if not equal or launches != 1:
+                    fail(f"post_kernel {name} ({variant}) disagrees with its "
+                         f"plain version (max_abs_err {err}) or launched "
+                         f"{launches} times")
+            del gb, pos, nrm, ao, aoh, passes
+        torch.cuda.empty_cache()
+        if frame_sums is None:
+            frame_sums = sums
+
+    cfg = RenderConfig(width=WIDTH, height=HEIGHT, max_depth=DEPTH, tile_h=32,
+                       tile_w=32, algorithm="binned")
+    render_frame(scene, cfg, device=dev)
+    before = post.post_kernel.launches
+    with spans.unit("post_check"):
+        img, _ = render_frame(scene, cfg, device=dev)
+    torch.cuda.synchronize()
+    counted = spans.records("post_check")[-1]["counts"].get("post.kernel")
+    launches = post.post_kernel.launches - before
+    emit("post_path", launches=launches, span_count=counted,
+         image=list(img.shape))
+    if launches != 3 or counted != 3:
+        fail(f"a frame launched the post kernel {launches} times "
+             f"(post.kernel {counted}); 3 expected")
+
+    # The differentiable frame: autograd has to see the post, so the
+    # passes take their plain versions on the card.
+    leaves = {f.name: getattr(scene.ssao, f.name).detach().clone()
+              .requires_grad_(True)
+              for f in dataclasses.fields(scene.ssao)}
+    grad_scene = dataclasses.replace(
+        scene, ssao=dataclasses.replace(scene.ssao, **leaves))
+    torch.cuda.reset_peak_memory_stats()
+    before = post.post_kernel.launches
+    grad_img, _ = render_frame(grad_scene, cfg, device=dev)
+    grad_img.sum().backward()
+    torch.cuda.synchronize()
+    launches = post.post_kernel.launches - before
+    grads = {k: None if v.grad is None else float(v.grad)
+             for k, v in leaves.items()}
+    equal = bits_equal(torch, grad_img.detach(), img)
+    # The radius only places NEAREST taps and the thresholds only gate
+    # them (`render_frame`'s docstring): no gradient, or zero.
+    weighed = ("intensity", "scale", "bias")
+    out = dict(launches=launches, image_bits_equal=equal,
+               max_abs_err=float((grad_img.detach() - img).abs().max()),
+               grads=grads, weighed=list(weighed),
+               peak_memory_mb=torch.cuda.max_memory_allocated() / 2**20)
+    emit("post_grad_path", **out)
+    if (launches != 0 or not equal
+            or not all(g is None or math.isfinite(g) for g in grads.values())
+            or not all(grads[k] not in (None, 0.0) for k in weighed)):
+        fail(f"the differentiable frame's post went wrong: {out}")
+    del grad_img, leaves, grad_scene
+    return frame_sums, max(errs)
+
+
 def main(argv) -> int:
     try:
         import torch
@@ -2338,6 +2524,7 @@ def main(argv) -> int:
     from sphereflake_tpu_torch.config import RenderConfig, default_scene
     from sphereflake_tpu_torch.ops import binned
     from sphereflake_tpu_torch.ops import pallas_traversal as ptrav
+    from sphereflake_tpu_torch.ops.post import post_kernel
     from sphereflake_tpu_torch.ops.recompute_vjp import recompute_vjp
     from sphereflake_tpu_torch.ops.binned import (
         camera_vector,
@@ -2388,6 +2575,10 @@ def main(argv) -> int:
         cuda=torch.version.cuda, python=sys.version.split()[0],
         build_seconds=round(build_s, 2), libraries=sorted(libs),
     )
+
+    # ---- phase 1b: the post chain's kernels ------------------------
+    # (ms, plain_ms, bound_ms) of the 1080p frame's passes; max_abs_err
+    post_chain, post_err = post_phase(torch, dev, card)
 
     # ---- phase 2: kernels vs plain --------------------------------
     cfg = RenderConfig(
@@ -2725,6 +2916,7 @@ def main(argv) -> int:
         )
 
     trace_pairs_fused_soa.launches = 0
+    post_kernel.launches = 0
     # The README's first usage line, through the CLI: one warm-up frame
     # plus CLI_FRAMES timed ones, written to a PNG.
     with tempfile.TemporaryDirectory() as tmp:
@@ -2738,6 +2930,7 @@ def main(argv) -> int:
     frames = [frame(i) for i in range(FRAMES)]
     torch.cuda.synchronize()
     launches = trace_pairs_fused_soa.launches
+    frames_post = post_kernel.launches
     frames_rendered = FRAMES + CLI_FRAMES + 1
     if rc != 0 or png_bytes < 10000:
         fail(f"CLI run failed: rc={rc}, png of {png_bytes} bytes")
@@ -2745,7 +2938,8 @@ def main(argv) -> int:
     m = gb.metrics
     hit_fraction = float(gb.hit.float().mean())
     main_path = dict(
-        frames=frames_rendered, launches=launches, cli_png_bytes=png_bytes,
+        frames=frames_rendered, launches=launches,
+        post_kernel_launches=frames_post, cli_png_bytes=png_bytes,
         overflow=int(m.overflow), max_depth_reached=int(m.max_depth_reached),
         nodes_visited=int(m.nodes_visited),
         closest_distance=float(m.closest_distance),
@@ -2770,9 +2964,9 @@ def main(argv) -> int:
     min_t_agree = float(close[both].float().mean())
     main_path.update(plain_hit_agree=hit_agree, plain_min_t_agree=min_t_agree)
     emit("main_path", **main_path)
-    if launches != frames_rendered:
-        fail(f"pairs_kernel launched {launches} times for "
-             f"{frames_rendered} frames")
+    if launches != frames_rendered or frames_post != 3 * frames_rendered:
+        fail(f"pairs_kernel launched {launches} times and post_kernel "
+             f"{frames_post} for {frames_rendered} frames")
     if int(m.overflow) != 0 or int(m.max_depth_reached) != 5:
         fail(f"scene properties off: {main_path}")
     if not (image.is_cuda and gb.min_t.is_cuda
@@ -2789,15 +2983,21 @@ def main(argv) -> int:
     counted = (trace_pairs_fused_soa, trace_pairs_fused_subset,
                trace_pairs_pallas_soa, ptrav.trace_tiles_pallas_soa)
 
+    # The post kernel's launches in each counted run (from its reset to
+    # its read), the main paths' count: every run is reset just before.
+    post_runs = []
+
     def reset_counts():
-        # The backward's kernel is reset with the four and read apart
-        # (`recompute_vjp.launches`, after `read_counts`): `read_counts`
-        # stays the four forward kernels' list every phase compares.
-        for wrapper in (*counted, recompute_vjp):
+        # The backward's and the post's kernels are reset with the four
+        # and read apart (`recompute_vjp.launches`, `post_kernel.launches`,
+        # after `read_counts`): `read_counts` stays the four forward
+        # kernels' list every phase compares.
+        for wrapper in (*counted, recompute_vjp, post_kernel):
             wrapper.launches = 0
 
     def read_counts():
         torch.cuda.synchronize()
+        post_runs.append(post_kernel.launches)
         return [wrapper.launches for wrapper in counted]
 
     def tile_steps(prepared, steps, seed=1):
@@ -2921,6 +3121,7 @@ def main(argv) -> int:
         png_bytes = os.path.getsize(png) if os.path.exists(png) else 0
     p_frames = [pallas_frame(i) for i in range(PALLAS_FRAMES)]
     p_counts = read_counts()
+    p_post = post_kernel.launches
     p_rendered = PALLAS_FRAMES + PALLAS_CLI_FRAMES + 1  # + the CLI's warm-up
     if rc != 0 or png_bytes < 10000:
         fail(f"CLI --algorithm pallas failed: rc={rc}, png of {png_bytes} bytes")
@@ -2954,9 +3155,10 @@ def main(argv) -> int:
                     min_t_within_leaf_radius_min=CROSS_T_LEAF_MIN),
     )
     emit("pallas_path", **pallas_path)
-    if p_counts != [0, 0, 0, p_rendered]:
-        fail(f"pallas frames launched {p_counts}: expected one traversal "
-             f"launch per frame ({p_rendered}) and no pair-kernel launch")
+    if p_counts != [0, 0, 0, p_rendered] or p_post != 3 * p_rendered:
+        fail(f"pallas frames launched {p_counts} and post_kernel {p_post}: "
+             f"expected one traversal launch and three post launches per "
+             f"frame ({p_rendered}) and no pair-kernel launch")
     if int(pm.overflow) != 0 or int(pm.max_depth_reached) != int(
             gb_kernel.metrics.max_depth_reached):
         fail(f"pallas frame properties off: {pallas_path}")
@@ -3649,7 +3851,14 @@ def main(argv) -> int:
     # pallas-vs-strict gradient check; the full-frame camera paths and
     # the profiled CLI run; the multi-device phases, the two workers'
     # launches included); no single PyTorch call computes any of them,
-    # so `library_ms` is null.
+    # so `library_ms` is null. The post kernel (it replaces no TPU kernel
+    # either): `launches` sums the main paths' runs, each counted from 0
+    # (the frames, and every run `read_counts` closes: the frameless and
+    # pallas runs, the camera paths, the profiled CLI run, the
+    # multi-device phases, bench, bigframe and scaling; the gated ones 3 a
+    # one-card frame, 12 a 2x2 mesh frame); `max_abs_err` is the largest of
+    # its `kernel_vs_plain` lines; ms, plain_ms and bound_ms are the 1080p
+    # frame's three passes summed.
     source = "sphereflake_tpu_torch/csrc/pairs_kernel.cu"
     print(json.dumps({"kernels": [
         {
@@ -3698,6 +3907,15 @@ def main(argv) -> int:
             "max_abs_err": vjp["max_abs_err"],
             "ms": vjp["ms"], "plain_ms": vjp["plain_ms"],
             "bound_ms": vjp["bound_ms"], "bound_by": vjp["bound_by"],
+            "library_ms": None,
+        },
+        {
+            "name": "post_kernel", "route": "cuda",
+            "source": "sphereflake_tpu_torch/csrc/post_kernel.cu",
+            "replaces": None, "launches": frames_post + sum(post_runs),
+            "max_abs_err": post_err, "ms": post_chain[0],
+            "plain_ms": post_chain[1], "bound_ms": post_chain[2],
+            "bound_by": "bytes",
             "library_ms": None,
         },
     ]}), flush=True)

@@ -895,7 +895,7 @@ def _main(args) -> int:
                 gb.position, gb.normal,
                 torch.from_numpy(ssao_noise_texture(cfg.noise_size)).to(device),
                 scene.ssao,
-                scene.ssao.radius_multiplier * m.closest_distance,
+                (scene.ssao.radius_multiplier, m.closest_distance),
                 cfg.height // cfg.ssao_downscale,
                 cfg.width // cfg.ssao_downscale,
             )

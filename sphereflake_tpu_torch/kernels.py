@@ -37,6 +37,7 @@ SOURCES = {
     "pairs_kernel": "pairs_kernel.cu",
     "traverse_kernel": "traverse_kernel.cu",
     "recompute_vjp": "recompute_vjp.cu",
+    "post_kernel": "post_kernel.cu",
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -129,20 +130,21 @@ def load(name: str) -> ctypes.CDLL:
     return _libs[name]
 
 
-def entry_point(lib: str, name: str, n_ptrs: int, n_ints: int):
+def entry_point(lib: str, name: str, n_ptrs: int, n_ints: int,
+                n_floats: int = 0):
     """C entry point `name` of the built library `lib`, taking `n_ptrs`
-    device pointers, `n_ints` ints and the stream; it returns
-    cudaGetLastError()."""
+    device pointers, `n_ints` ints, `n_floats` floats and the stream; it
+    returns cudaGetLastError()."""
     fn = getattr(load(lib), name)
     fn.argtypes = (
         [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
-        + [ctypes.c_void_p]
+        + [ctypes.c_float] * n_floats + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
     return fn
 
 
-def enqueue(fn, what: str, tensors, ints, dev):
+def enqueue(fn, what: str, tensors, ints, dev, floats=()):
     """Launch on the current stream of `dev`; raise if the launch was
     refused. The launch is asynchronous and ctypes keeps no reference
     to the tensors: that is safe because the launch goes to the current
@@ -150,7 +152,7 @@ def enqueue(fn, what: str, tensors, ints, dev):
     stream order."""
     with torch.cuda.device(dev):
         err = fn(
-            *(x.data_ptr() for x in tensors), *ints,
+            *(x.data_ptr() for x in tensors), *ints, *floats,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:

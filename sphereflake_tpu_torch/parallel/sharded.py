@@ -208,7 +208,7 @@ def render_frame_sharded(scene: SceneParams, cfg: RenderConfig, mesh: Mesh):
     The SSAO taps reach a data-dependent, unbounded radius
     (`post_ssao.glsl:42`, radius law 8 * closest distance), so every
     cell reads the whole gathered G-buffer and evaluates ITS OWN block
-    of each full-resolution pass (`ops.post.block_fragcoord`); the
+    of each full-resolution pass (the `block` of `ops.post`'s passes); the
     separable blur reads the previous pass across block borders, so the
     AO target is gathered between passes. Targets whose blocks do not
     tile evenly take the post replicated on the home device (correct,
@@ -250,40 +250,35 @@ def _post_sharded(gb, scene: SceneParams, cfg: RenderConfig, mesh: Mesh):
                                            noise, closest)),
         ))
 
-        def frag(idx, dev, bh, bw):
-            return post_ops.block_fragcoord(bh, bw, idx[0] * bh,
-                                            idx[1] * bw, dev)
+        def block(idx, bh, bw):
+            return (idx[0] * bh, idx[1] * bw, bh, bw)
 
         def gathered(blocks):
             return tile_blocks(mesh, all_gather(mesh, blocks))
 
         ao = gathered([
             post_ops.ssao_pass(
-                pos, nrm, nz, s.ssao, s.ssao.radius_multiplier * near, sh, sw,
-                frag=frag(idx, pos.device, sbh, sbw),
+                pos, nrm, nz, s.ssao, (s.ssao.radius_multiplier, near), sh,
+                sw, block=block(idx, sbh, sbw),
             )
             for idx, s, pos, nrm, nz, near in cells
         ])
         aoh = gathered([
             post_ops.blur_pass(a, pos, nrm, s.ssao, (1.0, 0.0), h, w,
-                               frag=frag(idx, pos.device, bbh, bbw))
+                               block=block(idx, bbh, bbw))
             for (idx, s, pos, nrm, _nz, _near), a in zip(cells,
                                                          broadcast(mesh, ao))
         ])
-        blocks = []
-        for (idx, s, pos, nrm, _nz, _near), a in zip(cells,
-                                                     broadcast(mesh, aoh)):
-            aov = post_ops.blur_pass(a, pos, nrm, s.ssao, (0.0, 1.0), h, w,
-                                     frag=frag(idx, pos.device, bbh, bbw))
-            # The composite samples every plane at its own pixel, so it
-            # runs on block-local data.
-            y0, x0 = idx[0] * bbh, idx[1] * bbw
-            pos_loc = pos[y0:y0 + bbh, x0:x0 + bbw]
-            img = (0.5 + 0.5 * (pos_loc + s.camera.position)) * aov[..., None]
-            sky = torch.sum(pos_loc * pos_loc, dim=-1) == 0.0
-            blocks.append(torch.where(sky[..., None], torch.zeros_like(img),
-                                      img))
-        return gathered(blocks)
+        # The vertical blur and the composite, which samples every plane
+        # at its own pixel, in one pass on the cell's block.
+        return gathered([
+            post_ops.blur_composite_pass(
+                a, pos, nrm, s.ssao, s.camera.position, h, w,
+                block=block(idx, bbh, bbw),
+            )
+            for (idx, s, pos, nrm, _nz, _near), a in zip(cells,
+                                                         broadcast(mesh, aoh))
+        ])
 
 
 def fit_step_sharded(scene: SceneParams, target_position, target_normal,

@@ -104,7 +104,8 @@ def test_ssao_matches_reference_and_glsl_transcription(downscale):
     ref_p, port_p = _ssao_params()
     radius = 3.7
     got = port_post.ssao_pass(
-        T(pos), T(nrm), T(noise), port_p, torch.tensor(radius), h, w
+        T(pos), T(nrm), T(noise), port_p,
+        (torch.tensor(radius), torch.tensor(1.0)), h, w,
     ).numpy()
     want = np.asarray(ref_post.ssao_pass(
         jnp.asarray(pos), jnp.asarray(nrm), jnp.asarray(noise), ref_p,
@@ -171,7 +172,9 @@ def test_composite_matches_reference_and_glsl_transcription():
     h, w = pos.shape[:2]
     ao = np.random.default_rng(8).random((h, w)).astype(np.float32)
     cam = np.array([0.3, -0.2, 1.4], np.float32)
-    got = port_post.composite_pass(T(pos), T(ao), T(cam), h, w).numpy()
+    # the frame's composite runs inside `blur_composite_pass`, on planes
+    # sampled at the pixel's own texel: `_shade` on the planes themselves
+    got = port_post._shade(T(pos), T(ao), T(cam)).numpy()
     want = np.asarray(ref_post.composite_pass(
         jnp.asarray(pos), jnp.asarray(ao), jnp.asarray(cam), h, w
     ))

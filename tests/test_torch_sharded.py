@@ -143,6 +143,8 @@ def test_per_block_matches_single_device(kw, shape, hit_max, t_min):
         (dict(width=128, height=64, max_depth=2, ssao_downscale=2), (2, 2)),
         # 160x128 / 4 over 2x4 does not: the replicated post
         (dict(width=160, height=128, max_depth=2, ssao_downscale=4), (2, 4)),
+        # row blocks: the second cell's passes start at row 64
+        (dict(width=64, height=128, max_depth=2), (2, 1)),
     ],
 )
 def test_render_frame_sharded_equals_render_frame(kw, shape):
