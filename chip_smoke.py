@@ -735,23 +735,17 @@ def perturbed(scene, dyaw, dratio=0.0):
 def band_vs_plain(torch, scene, cfg, band: int = -1):
     """K1 against its plain version on band `band` of cfg's banded frame,
     as `render.band_layout` cuts it (the last band by default: the
-    largest y offset), on the port's own front end for that band: rows
-    and metrics bit for bit, the rows' agreement and the band's shape."""
-    from sphereflake_tpu_torch.models.sphereflake import (
-        child_templates,
-        root_frame,
-    )
+    largest y offset), on the port's own front end for that band
+    (`band_fronts` of its offset alone): rows and metrics bit for bit,
+    the rows' agreement and the band's shape."""
     from sphereflake_tpu_torch.ops import binned
     from sphereflake_tpu_torch.render import band_layout
 
     bcfg, offsets = band_layout(cfg, (cfg.width, cfg.height, 0.0, 0.0))
     frame = (cfg.width, cfg.height, 0.0, offsets[band])
     with torch.no_grad():
-        pairs, starts, lens, (n_pairs, ovf) = binned.binned_pairs(
-            scene, bcfg, root_frame(scene.camera.position),
-            child_templates(scene.fractal), frame=frame,
-        )
-        cam = binned.camera_vector(scene, bcfg, frame=frame)
+        (pairs, starts, lens, (n_pairs, ovf), cam), = binned.band_fronts(
+            scene, bcfg, cfg.width, cfg.height, 0.0, [offsets[band]])
         out_k, m_k = binned.trace_pairs_fused_soa(cam, pairs, starts, lens,
                                                   bcfg)
         torch.cuda.synchronize()
@@ -784,12 +778,13 @@ def band_checks(torch, scene, cfg):
     from sphereflake_tpu_torch.render import band_layout
 
     bcfg, offsets = band_layout(cfg, (cfg.width, cfg.height, 0.0, 0.0))
+    fronts = binned.band_fronts(scene, bcfg, cfg.width, cfg.height, 0.0,
+                                offsets)
     per_band = []
     with torch.no_grad():
-        for y_off in offsets:
+        for y_off, band_front in zip(offsets, fronts):
             offs = (0.0, y_off)
-            outs = binned._gbuffer_primal(bcfg, cfg.width, cfg.height, scene,
-                                          offs)
+            outs = binned._gbuffer_primal(bcfg, band_front)
             rec = binned._gbuffer_recompute(bcfg, cfg.width, cfg.height,
                                             scene, offs, outs[8], outs[9])
             hit = outs[7] > 0.0
@@ -836,6 +831,8 @@ def vjp_band_checks(torch, scene, cfg):
     depth = bcfg.max_depth
     names = ("dx", "dy", "dz", "root", "templates", "ratio", "radius0",
              "rhit")
+    fronts = binned.band_fronts(scene, bcfg, cfg.width, cfg.height, 0.0,
+                                offsets)
     last = None
     for b, y_off in enumerate(offsets):
         offs = (0.0, y_off)
@@ -843,8 +840,7 @@ def vjp_band_checks(torch, scene, cfg):
                   for x in scene.leaves()]
         s = SceneParams.from_leaves(leaves)
         with torch.no_grad():
-            outs = binned._gbuffer_primal(bcfg, cfg.width, cfg.height, s,
-                                          offs)
+            outs = binned._gbuffer_primal(bcfg, fronts[b])
         lo, hi = outs[8], outs[9]
         front = (*binned._band_rays(bcfg, cfg.width, cfg.height, s, offs),
                  root_frame(s.camera.position), child_templates(s.fractal),

@@ -7,7 +7,7 @@ Sizes default to 4096 8192 16384, the depth to 6 (`d8` sets 8). Below
 16384 a size renders through the banded `render_gbuffer` (the full
 G-buffer in device memory). 16384^2 (268M rays; its position and normal
 planes alone would take 6.4 GB, its kernel rows 7.5 GB) runs
-`lean_bands`: the same bands (`render.binned_bands`), each reduced to
+`lean_bands`: the same bands (`render.band_layout`), each reduced to
 `min_t`, the hit mask and an 8x downsampled normal preview before the
 next band runs. Its preview is
 written as a PNG to the temporary directory (`bigframe_16384.png`).
@@ -33,7 +33,7 @@ from sphereflake_tpu_torch.config import (
     default_scene,
     resolve_device,
 )
-from sphereflake_tpu_torch.render import _BIG, binned_bands, render_gbuffer
+from sphereflake_tpu_torch.render import _BIG, band_layout, render_gbuffer
 from sphereflake_tpu_torch.utils.image import write_png
 
 DS = 8  # preview downsample
@@ -54,10 +54,10 @@ def n_bands(cfg: RenderConfig) -> int:
 
 
 def lean_bands(scene, cfg: RenderConfig, ds: int = DS) -> dict:
-    """The frame band by band (`render.binned_bands`, the bands
-    `render_gbuffer` renders), keeping only `min_t` [H, W], the hit mask
-    (uint8) [H, W] and the normal preview `normal[::ds, ::ds]` (zeros at
-    sky); each band's kernel outputs are reduced to those before the
+    """The frame band by band (`render.band_layout`, the bands
+    `render_gbuffer` renders, each band's front made alone), keeping
+    only `min_t` [H, W], the hit mask (uint8) [H, W] and the normal
+    preview `normal[::ds, ::ds]` (zeros at sky); each band's kernel outputs are reduced to those before the
     next band runs, so no full-frame plane of kernel rows ever exists.
     Also the summed `nodes` and `overflow` (pair/compaction and kernel
     drops) as host ints, and the number of `bands`. On the scene's
@@ -93,9 +93,15 @@ def lean_bands(scene, cfg: RenderConfig, ds: int = DS) -> dict:
         nodes.add_(m[..., 0].sum())
         overflow.add_(m[..., 1].sum() + povf)
 
-    frame = (cfg.width, cfg.height, 0.0, 0.0)
+    from sphereflake_tpu_torch.ops.binned import band_fronts, binned_gbuffer
+
+    fw, fh = cfg.width, cfg.height
+    bcfg, offsets = band_layout(cfg, (fw, fh, 0.0, 0.0))
     with torch.no_grad():
-        for bcfg, y_off, outs in binned_bands(scene, cfg, frame):
+        for y_off in offsets:  # each band's front alone: one pair table held
+            (front,) = band_fronts(scene, bcfg, fw, fh, 0.0, [y_off])
+            outs = binned_gbuffer(bcfg, fw, fh, scene, (0.0, y_off), front)
+            del front
             keep(bcfg, y_off, *outs)
             del outs  # free the band's outputs before the next band runs
     return dict(

@@ -66,31 +66,6 @@ def _block_cfg(cfg: RenderConfig, mesh: Mesh) -> RenderConfig:
     return dataclasses.replace(cfg, height=bh, width=bw, band_tile_rows=btr)
 
 
-def _fronts_primal(scene: SceneParams, cfg: RenderConfig, frame):
-    """The forward of each band of the block cfg describes at `frame`,
-    with every band's expansion and binning made first in one batched
-    call (`ops.binned.band_fronts`), and no upload that waits for the
-    card between the bands: the host queues a whole block and moves on
-    to the next cell's card while this one works. A 16384^2 frame on a
-    2x2 mesh of H100s ran 35,016 device operations instead of 269,104.
-    None for an unbanded block."""
-    from sphereflake_tpu_torch.ops.binned import _gbuffer_primal, band_fronts
-    from sphereflake_tpu_torch.render import band_layout
-
-    band_cfg, offsets = band_layout(cfg, frame)
-    if len(offsets) < 2:
-        return None
-    with torch.no_grad():
-        fronts = dict(zip(offsets, band_fronts(
-            scene, band_cfg, frame[0], frame[1], frame[2], offsets)))
-
-    def primal(c, frame_w, frame_h, s, offs):
-        return _gbuffer_primal(c, frame_w, frame_h, s, offs,
-                               front=fronts.pop(offs[1]))
-
-    return primal
-
-
 def _render_block(scene: SceneParams, cfg: RenderConfig, bcfg: RenderConfig,
                   iy: int, ix: int):
     """Render cell (iy, ix)'s image block on the scene's device, binned
@@ -117,8 +92,7 @@ def _render_block(scene: SceneParams, cfg: RenderConfig, bcfg: RenderConfig,
     x0 = float(ix * bcfg.width)
     if bcfg.algorithm == "binned":
         frame = (cfg.width, cfg.height, x0, y0)
-        rows, metrics = _binned_rows(scene, bcfg, frame,
-                                     _fronts_primal(scene, bcfg, frame))
+        rows, metrics = _binned_rows(scene, bcfg, frame)
         imgs = _untile_rows(rows, bcfg)
         return (
             torch.stack(imgs[1:4], dim=-1),

@@ -24,20 +24,19 @@ Every stage is either the single-device stage itself or an exact
 decomposition of it, and K2's coded rows of a tile equal K1's, so the
 frame equals `render.render_gbuffer`'s bit for bit.
 
-Differentiable through `ops.binned.BinnedGBuffer`: this module supplies
-its primal (`_shared_primal`, the same outputs as the single-device
-`_gbuffer_primal`), and the backward is the single-device recompute of
-the full frame from the saved path codes (replicated; the sharded
-backward is `fit_step_sharded`'s).
+Differentiable through `ops.binned.BinnedGBuffer`, subclassed with this
+module's forward (`_shared_primal`, the same outputs as the
+single-device `_gbuffer_primal`); the backward is the single-device
+recompute of the full frame from the saved path codes (replicated; the
+sharded backward is `fit_step_sharded`'s).
 """
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from sphereflake_tpu_torch.config import RenderConfig, SceneParams
+from sphereflake_tpu_torch.ops.binned import BinnedGBuffer, _owned
 from sphereflake_tpu_torch.parallel.mesh import Mesh, all_gather
 
 _BIG = 3.0e38
@@ -174,11 +173,28 @@ def _shared_primal(mesh: Mesh, cfg: RenderConfig, frame_w, frame_h,
             flat(-1), hit, lo_c, hi_c, m, geo["pair_overflow"] + exp_ovf)
 
 
+class _SharedGBuffer(BinnedGBuffer):
+    """`ops.binned.BinnedGBuffer` with the shared bin's forward
+    (`_shared_primal`; statics (cfg, frame_w, frame_h, mesh)): its
+    backward and jvp are the single-device recompute."""
+
+    @staticmethod
+    def forward(statics, offs, *leaves):
+        cfg, frame_w, frame_h, mesh = statics
+        return _owned(_shared_primal(
+            mesh, cfg, frame_w, frame_h, SceneParams.from_leaves(leaves), offs
+        ))
+
+
 def render_gbuffer_shared(scene: SceneParams, cfg: RenderConfig, mesh: Mesh):
     """Full-frame G-buffer through the shared bin (module docstring), on
     the mesh's home device; equal to `render.render_gbuffer` bit for
     bit. Returns a `render.GBuffer`."""
-    from sphereflake_tpu_torch.render import _grad_mode, _render_gbuffer_binned
+    from sphereflake_tpu_torch.render import (
+        _band_rows,
+        _binned_gbuffer,
+        _grad_mode,
+    )
 
     if not shared_bin_supported(cfg, mesh):
         raise ValueError(
@@ -187,6 +203,7 @@ def render_gbuffer_shared(scene: SceneParams, cfg: RenderConfig, mesh: Mesh):
         )
     scene = scene.to(mesh.home)
     with _grad_mode(scene):
-        return _render_gbuffer_binned(
-            scene, cfg, functools.partial(_shared_primal, mesh)
+        outs = _SharedGBuffer.apply(
+            (cfg, cfg.width, cfg.height, mesh), (0.0, 0.0), *scene.leaves()
         )
+        return _binned_gbuffer(cfg, *_band_rows(cfg, outs))

@@ -113,7 +113,8 @@ def grow_capacity(cfg: RenderConfig) -> RenderConfig:
     Binned path: double global_cap until every level-5 parent fits the
     expansion gate cap (ecap = global_cap/9 >= 59049), then cut the band
     height — banding cuts the live set per band, which bounds capacity
-    at ANY pose. Per-tile paths: double max_frontier (the traversal
+    at ANY pose (the fronts made at once stay within
+    `ops.binned.FRONT_SLOTS`, however many bands). Per-tile paths: double max_frontier (the traversal
     kernel's scratch in device memory grows with it)."""
     if cfg.algorithm != "binned":
         return dataclasses.replace(cfg, max_frontier=cfg.max_frontier * 2)
@@ -151,50 +152,51 @@ def band_layout(cfg: RenderConfig, frame):
                   for b in range(cfg.tiles_y // band_rows)]
 
 
-def binned_bands(scene: SceneParams, cfg: RenderConfig, frame, primal=None):
-    """The bands of `band_layout(cfg, frame)`, one after the other:
-    yields (band config, y offset, the outputs of
-    `ops.binned.binned_gbuffer`) for each. `primal` replaces the block's
-    forward (`ops.binned._gbuffer_primal`). The caller decides what of a
-    band outlives the next one."""
-    from sphereflake_tpu_torch.ops.binned import _gbuffer_primal, binned_gbuffer
+def _band_rows(c: RenderConfig, outs):
+    """Shaded kernel rows [T, 7, 8, 128] (min_t, pos3, nrm3) of one
+    block's `binned_gbuffer` outputs, plus (depth_reached,
+    nodes_visited, overflow)."""
+    from sphereflake_tpu_torch.ops.pallas_traversal import depth_reached_soa
 
-    fw, fh, x0, _y0 = frame
-    bcfg, offsets = band_layout(cfg, frame)
-    for y_off in offsets:
-        yield bcfg, y_off, binned_gbuffer(
-            bcfg, fw, fh, scene, (x0, y_off), primal=primal or _gbuffer_primal
+    (min_t, px, py, pz, nx, ny, nz, _hitf, lo, hi, m, povf) = outs
+    Tb = c.tiles_y * c.tiles_x
+    with spans.span("gbuffer.untile"):
+        rows = torch.movedim(
+            torch.stack([min_t, px, py, pz, nx, ny, nz], dim=0)
+            .reshape(7, Tb, 8, 128),
+            0, 1,
+        )
+        return rows, (
+            depth_reached_soa(lo, c, hi),
+            m[..., 0].sum(dtype=torch.int32),
+            m[..., 1].sum(dtype=torch.int32) + povf,
         )
 
 
-def _binned_rows(scene: SceneParams, cfg: RenderConfig, frame, primal=None):
-    """Shaded kernel rows [T, 7, 8, 128] (min_t, pos3, nrm3) for cfg's
-    full tile grid, plus (depth_reached, nodes_visited, overflow): the
-    bands of `binned_bands`, concatenated."""
-    from sphereflake_tpu_torch.ops.pallas_traversal import depth_reached_soa
+def _binned_rows(scene: SceneParams, cfg: RenderConfig, frame):
+    """`_band_rows` for cfg's full tile grid at `frame` = (frame_w,
+    frame_h, x_off, y_off): the bands of `band_layout`, concatenated.
+    Their fronts come a run of bands at a time (`ops.binned.front_groups`,
+    one `band_fronts` call a run), and each band's front is let go once
+    its kernel is queued."""
+    from sphereflake_tpu_torch.ops.binned import (
+        band_fronts,
+        binned_gbuffer,
+        front_groups,
+    )
 
-    def one(c, outs):
-        (min_t, px, py, pz, nx, ny, nz, _hitf, lo, hi, m, povf) = outs
-        Tb = c.tiles_y * c.tiles_x
-        with spans.span("gbuffer.untile"):
-            rows = torch.movedim(
-                torch.stack([min_t, px, py, pz, nx, ny, nz], dim=0)
-                .reshape(7, Tb, 8, 128),
-                0, 1,
-            )
-            return (
-                rows,
-                depth_reached_soa(lo, c, hi),
-                m[..., 0].sum(dtype=torch.int32),
-                m[..., 1].sum(dtype=torch.int32) + povf,
-            )
-
-    bands = [one(c, outs)
-             for c, _y, outs in binned_bands(scene, cfg, frame, primal)]
+    fw, fh, x0, _y0 = frame
+    bcfg, offsets = band_layout(cfg, frame)
+    bands = []
+    for run in front_groups(bcfg, offsets):
+        fronts = band_fronts(scene, bcfg, fw, fh, x0, run)
+        for y_off in run:
+            bands.append(_band_rows(bcfg, binned_gbuffer(
+                bcfg, fw, fh, scene, (x0, y_off), fronts.pop(0))))
     if cfg.effective_band_rows is None:
-        rows, depth_r, nodes_n, ovf = bands[0]
-        return rows, (depth_r, nodes_n, ovf)
-    rows_b, depth_b, nodes_b, ovf_b = zip(*bands)
+        return bands[0]
+    rows_b, metrics_b = zip(*bands)
+    depth_b, nodes_b, ovf_b = zip(*metrics_b)
     with spans.span("gbuffer.untile"):
         return (
             torch.cat(rows_b),
@@ -206,15 +208,13 @@ def _binned_rows(scene: SceneParams, cfg: RenderConfig, frame, primal=None):
         )
 
 
-def _render_gbuffer_binned(scene: SceneParams, cfg: RenderConfig,
-                           primal=None) -> GBuffer:
-    """The fused production pipeline: ONE kernel call per band
-    computes raygen + binned ray tests + G-buffer shading; torch's
-    remaining jobs are the node binning and the tile->image untiles.
-    `primal`: see `_binned_rows`."""
-    rows, (depth_r, nodes_n, overflow) = _binned_rows(
-        scene, cfg, (cfg.width, cfg.height, 0.0, 0.0), primal
-    )
+def _binned_gbuffer(cfg: RenderConfig, rows, metrics) -> GBuffer:
+    """The fused production pipeline's `GBuffer` from its kernel rows
+    and (depth_reached, nodes_visited, overflow) (`_binned_rows`): ONE
+    kernel call per band computes raygen + binned ray tests + G-buffer
+    shading; torch's remaining jobs are the node binning and the
+    tile->image untiles."""
+    depth_r, nodes_n, overflow = metrics
     with spans.span("gbuffer.untile"):
         imgs = _untile_rows(rows, cfg)
         position = torch.stack(imgs[1:4], dim=-1)
@@ -253,7 +253,7 @@ def trace_tiles(
 
     assert cfg.algorithm != "binned", (
         "the binned path renders whole blocks (raygen is fused into "
-        "the kernel) — use render_gbuffer / _render_gbuffer_binned"
+        "the kernel) — use render_gbuffer"
     )
     if cfg.algorithm == "pallas":
         from sphereflake_tpu_torch.ops.pallas_traversal import (
@@ -450,7 +450,9 @@ def render_gbuffer(
         scene = scene.to(resolve_device(device))
         with _grad_mode(scene):
             if cfg.algorithm == "binned":
-                return _render_gbuffer_binned(scene, cfg)
+                return _binned_gbuffer(cfg, *_binned_rows(
+                    scene, cfg, (cfg.width, cfg.height, 0.0, 0.0)
+                ))
             if cfg.algorithm == "pallas":
                 return _render_gbuffer_soa(scene, cfg)
             return _render_gbuffer_tiles(scene, cfg)

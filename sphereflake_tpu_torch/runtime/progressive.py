@@ -649,7 +649,7 @@ def tile_progressive_composite(
     scene = scene.to(dev)
     with torch.no_grad():
         position, normal, min_t, _hit = tile_progressive_gbuffer(state, cfg)
-        closest = torch.min(min_t)  # `_render_gbuffer_binned` metric formula
+        closest = torch.min(min_t)  # `render._binned_gbuffer` metric formula
         if noise is None:
             noise = torch.from_numpy(ssao_noise_texture(cfg.noise_size)).to(dev)
         return postprocess(position, normal, closest, scene, cfg, noise)

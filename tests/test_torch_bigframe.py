@@ -73,6 +73,66 @@ def test_lean_bands_of_an_unbanded_frame(scene):
     assert lean["nodes"] == int(gb.metrics.nodes_visited)
 
 
+@pytest.mark.parametrize("path", ["render_gbuffer", "lean_bands", "runs"])
+def test_fronts_come_from_band_fronts(scene, monkeypatch, path):
+    """A banded frame on one card makes all its bands' fronts in one
+    `band_fronts` call; `lean_bands` makes them one band at a time, each
+    call with that band's offset alone. Where the bands' pair tables
+    together exceed `FRONT_SLOTS`, the frame makes its fronts a run of
+    bands a call (`front_groups`), and is the same frame bit for bit."""
+    from sphereflake_tpu_torch.ops import binned
+
+    calls = []
+    real = binned.band_fronts
+
+    def counted(scene, cfg, frame_w, frame_h, x_off, y_offs):
+        calls.append(list(y_offs))
+        return real(scene, cfg, frame_w, frame_h, x_off, y_offs)
+
+    monkeypatch.setattr(binned, "band_fronts", counted)
+    size = 256 if path == "runs" else 128
+    cfg = RenderConfig(width=256, height=size, max_depth=3, band_tile_rows=2,
+                       **_BINNED)
+    bcfg, offsets = render.band_layout(cfg, (256, size, 0.0, 0.0))
+    assert offsets == [64.0 * b for b in range(size // 64)]
+    if path == "lean_bands":
+        bigframe.lean_bands(scene, cfg)
+        assert calls == [[y] for y in offsets]
+        return
+    gb = render_gbuffer(scene, cfg, device="cpu")
+    assert calls == [offsets]
+    if path == "runs":
+        calls.clear()
+        monkeypatch.setattr(binned, "FRONT_SLOTS", 2 * bcfg.pair_cap)
+        runs = render_gbuffer(scene, cfg, device="cpu")
+        assert calls == [offsets[:2], offsets[2:]]
+        for name in ("position", "normal", "min_t", "hit"):
+            assert torch.equal(getattr(runs, name), getattr(gb, name)), name
+        for name in ("max_depth_reached", "nodes_visited", "overflow"):
+            assert torch.equal(getattr(runs.metrics, name),
+                               getattr(gb.metrics, name)), name
+
+
+def test_front_groups():
+    """Runs of nearly equal length, in order, each within `FRONT_SLOTS`
+    pair slots, one band a run at the least."""
+    from sphereflake_tpu_torch.ops import binned
+
+    cfg = RenderConfig(width=256, height=256, max_depth=3, **_BINNED)
+    per_call = binned.FRONT_SLOTS // cfg.pair_cap
+    ys = [float(b) for b in range(2 * per_call + 1)]
+    runs = binned.front_groups(cfg, ys)
+    assert [y for r in runs for y in r] == ys
+    assert len(runs) == 3 and max(map(len, runs)) - min(map(len, runs)) <= 1
+    assert all(len(r) * cfg.pair_cap <= binned.FRONT_SLOTS for r in runs)
+    assert binned.front_groups(cfg, ys[:per_call]) == [ys[:per_call]]
+    top = RenderConfig(width=256, height=256, max_depth=8, global_cap=9 << 16,
+                       **_BINNED)
+    assert top.pair_cap == binned.PAIR_CAP
+    assert binned.front_groups(top, ys[:40]) == [ys[0:13], ys[13:26],
+                                                 ys[26:40]]
+
+
 def test_band_layout():
     """The bands `render_gbuffer` and `lean_bands` share: y offsets one
     band height apart from the block's own, each band the padded width;

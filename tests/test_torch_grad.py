@@ -428,9 +428,8 @@ def deep_frame():
     kw = dict(width=64, height=32, max_depth=7, tile_h=32, tile_w=32,
               global_cap=1 << 15)
     cfg = RenderConfig(algorithm="binned", **kw)
-    outs = port_binned._gbuffer_primal(
-        cfg, cfg.width, cfg.height, scene, (0.0, 0.0)
-    )
+    outs = port_binned._gbuffer_primal(cfg, port_binned.band_fronts(
+        scene, cfg, cfg.width, cfg.height, 0.0, [0.0])[0])
     return scene, cfg, RenderConfig(algorithm="pallas", **kw), outs
 
 

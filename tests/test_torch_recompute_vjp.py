@@ -48,8 +48,8 @@ def _case(scene, cfg, tile: int = 1):
     """The band's codes from the primal, its front under grad (leaves,
     rays, root, templates, level radii; rays and codes repeated `tile`
     times) and seeded upstream gradients."""
-    outs = binned._gbuffer_primal(cfg, cfg.width, cfg.height, scene,
-                                  (0.0, 0.0))
+    outs = binned._gbuffer_primal(cfg, binned.band_fronts(
+        scene, cfg, cfg.width, cfg.height, 0.0, [0.0])[0])
     lo, hi = outs[8].repeat(tile), outs[9].repeat(tile)
     leaves = [x.detach().clone().requires_grad_(True) for x in scene.leaves()]
     s = SceneParams.from_leaves(leaves)
@@ -207,14 +207,15 @@ def test_forward_mode_keeps_the_plain_chain(cases):
     c = cases["depth2"]
     cfg = c["cfg"]
     scene = default_scene("cpu")
-    outs = binned._gbuffer_primal(cfg, cfg.width, cfg.height, scene,
-                                  (0.0, 0.0))
+    front = binned.band_fronts(scene, cfg, cfg.width, cfg.height, 0.0,
+                               [0.0])[0]
+    outs = binned._gbuffer_primal(cfg, front)
     with fwAD.dual_level():
         x = fwAD.make_dual(torch.zeros(()), torch.ones(()))
         moved = dataclasses.replace(scene, camera=dataclasses.replace(
             scene.camera, yaw=scene.camera.yaw + x))
         via_jvp = binned.binned_gbuffer(cfg, cfg.width, cfg.height, moved,
-                                        (0.0, 0.0))
+                                        (0.0, 0.0), front)
         plain = binned._gbuffer_recompute(cfg, cfg.width, cfg.height, moved,
                                           (0.0, 0.0), outs[8], outs[9])
         for a, b in zip(via_jvp[:7], plain):

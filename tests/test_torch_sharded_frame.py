@@ -10,8 +10,9 @@ per-block path its banded frames take:
   mesh moves reckoned from the planes' shapes;
 - the sharded G-buffer equals the one-device `render_gbuffer` bit for
   bit;
-- a block's bands expanded and binned at once (`band_fronts`, as the
-  per-block path makes them) equal each band's own front bit for bit.
+- a block's bands expanded and binned at once (`band_fronts`, as every
+  binned frame makes them) equal each band's own one-band front bit for
+  bit.
 """
 
 import json

@@ -185,7 +185,7 @@ def run_port(kw, max_frontier, device):
         child_templates,
         root_frame,
     )
-    from sphereflake_tpu_torch.ops.binned import binned_gbuffer
+    from sphereflake_tpu_torch.ops.binned import band_fronts, binned_gbuffer
     from sphereflake_tpu_torch.ops.pallas_traversal import (
         resolve_codes_soa,
         trace_tiles_pallas_soa,
@@ -200,7 +200,9 @@ def run_port(kw, max_frontier, device):
     T = pcfg.tiles_y * pcfg.tiles_x
     image = lambda flat: _untile(flat.reshape(T, 1024), pcfg).cpu().numpy()
     with torch.no_grad():
-        b = binned_gbuffer(bcfg, bcfg.width, bcfg.height, scene, (0.0, 0.0))
+        b = binned_gbuffer(bcfg, bcfg.width, bcfg.height, scene, (0.0, 0.0),
+                           band_fronts(scene, bcfg, bcfg.width, bcfg.height,
+                                       0.0, [0.0])[0])
         t_b, code_b = image(b[0]), image(b[8])
         b_overflow = int(b[10][..., 1].sum()) + int(b[11])
         tiled = _soa_raygen(scene, pcfg)
